@@ -26,6 +26,12 @@ jax.config.update("jax_enable_x64", False)
 CHIP_SEED = 42  # single RNG root for every sampled chip in the suite
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an sm_90 CUDA card (the port's hand-written "
+        "kernels); skipped elsewhere")
+
+
 @pytest.fixture(scope="session")
 def rng():
     return jax.random.PRNGKey(0)
