@@ -7,22 +7,32 @@ Run from the repository root with no arguments:
 Phases (each prints one JSON line; any failure exits non-zero):
 
 1. env      -- torch / CUDA / card, and the card's name and power limit.
-2. build    -- compiles the three CUDA kernels from src/repro_torch/csrc.
+2. build    -- compiles the five CUDA kernels from src/repro_torch/csrc,
+               one nvcc per source, all started together.
 3. kernels  -- holds each kernel against its plain PyTorch version on the
-               card at the main path's shapes and times kernel, plain
-               version, one PyTorch library call (the yardstick) and the
-               bound (bytes / 3.35 TB/s or operations / the tensor-core
-               peak for the operand type, the larger).
+               card at its path's shapes (K1 also at VGG-8's ragged K = 27
+               and N = 10, K4 at all 8 VGG-8 layer shapes and planes, K5 at
+               conv2/conv6/fc1 with a sampled chip) and times kernel,
+               plain version, one PyTorch library call (the yardstick) and
+               the bound (bytes / 3.35 TB/s or operations / the peak rate
+               for the operand type, the larger).
 4. main     -- serves 8 requests through the port's ContinuousEngine at
                qwen3-8b's widths (w8a8_kernel plan, paged attention,
                chunked prefill, int8 KV pool, random weights from a seed),
                checks every request is OK and every kernel launched, and
                replays the requests through the plain versions.
-5. the ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
+5. vgg8     -- the paper's VGG-8 deployment path (repro_torch.launch.fig10)
+               at its published widths with random weights from a seed:
+               w8a8_kernel (with and without residency) and
+               bitserial_kernel logits bit-identical to their plain plans,
+               the cim plan with 8 sampled chips, calibrated full scales
+               and per-channel fine-tunes, and the CAAT macro op on every
+               cim layer's int8 inputs against the behavioural simulation.
+6. the ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
    ``{"ok": true, "device": ...}`` line.
 
-``--skip-main`` stops after the kernel phase (a quick kernel check).  Long output goes to
-chiprun_out/chip_smoke.json.
+``--skip-main`` stops after the kernel phase (a quick kernel check).  Long
+output goes to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
@@ -40,12 +50,36 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 PEAK_INT8_OPS = 1979e12            # H100 SXM dense int8 tensor-core rate
 PEAK_BF16_OPS = 989e12             # H100 SXM dense bf16 tensor-core rate
 PEAK_TF32_OPS = 495e12             # H100 SXM dense TF32 tensor-core rate
+PEAK_F32_OPS = 67e12               # H100 SXM f32 rate on the CUDA cores
 K1_SHAPES = ((4096, 4096), (4096, 1024), (4096, 12288), (12288, 4096),
              (4096, 152064))       # (K, N) of q/o, k/v, gate/up, down, head
+# (M, K, N) of VGG-8's eight layers at batch 32 (conv1 ... conv6, fc1,
+# head): M is batch x pixels for a conv, K = 9 x C_in.
+VGG8_SHAPES = ((32768, 27, 128), (32768, 1152, 128), (8192, 1152, 256),
+               (8192, 2304, 256), (2048, 2304, 512), (2048, 4608, 512),
+               (32, 8192, 1024), (32, 1024, 10))
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+@contextlib.contextmanager
+def swapped(module, name: str, replacement):
+    """Temporarily route ``module.name`` to ``replacement`` (a kernel
+    wrapper to its plain twin; those calls are not counted as
+    launches)."""
+    saved = getattr(module, name)
+    setattr(module, name, replacement)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+def rand_i8(torch, shape, gen, lo=-128, hi=128):
+    return torch.randint(lo, hi, shape, generator=gen, device="cuda",
+                         dtype=torch.int32).to(torch.int8)
 
 
 def attention_peak(torch, dtype) -> float:
@@ -120,6 +154,28 @@ def check_k1(torch, timer, ops, gen):
                             f"a={a.dtype} requant={requant}: {bad} of "
                             f"{got.numel()} outputs differ")
                     n_cases += 1
+    # VGG-8's ragged shapes (conv1 K = 27, head N = 10), with the VGG
+    # epilogue (bias + ReLU).
+    for m, k, n in ((32768, 27, 128), (32, 1024, 10)):
+        w = rand_i8(torch, (k, n), gen, -127)
+        w_scale = torch.rand(n, generator=gen, device=dev) * 1e-2 + 1e-4
+        bias = torch.randn(n, generator=gen, device=dev) * 0.1
+        a_scale = torch.tensor(0.02, device=dev)
+        out_scale = torch.tensor(0.05, device=dev)
+        a32 = torch.rand(m, k, generator=gen, device=dev) * 2.0 - 0.5
+        for a in (a32, rand_i8(torch, (m, k), gen)):
+            for relu, requant in ((True, False), (True, True),
+                                  (False, False)):
+                args = (a, w, a_scale, w_scale, bias, out_scale)
+                got = ops.cim_matmul_kernel(*args, relu=relu,
+                                            requant=requant)
+                want = ops.cim_matmul_plain(*args, relu=relu,
+                                            requant=requant)
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"K1 not bit-exact at ragged M={m} K={k} N={n} "
+                        f"a={a.dtype} relu={relu} requant={requant}")
+                n_cases += 1
     # Timing at the decode shape the main path runs most: gate/up.
     m, k, n = 8, 4096, 12288
     a = torch.randn(m, k, generator=gen, device=dev)
@@ -148,6 +204,7 @@ def check_k1(torch, timer, ops, gen):
             "source": "src/repro_torch/csrc/cim_matmul.cu",
             "replaces": "src/repro/kernels/cim_matmul/kernel.py:121",
             "max_abs_err": 0.0, "cases": n_cases,
+            "ragged_cases": "M=32768 K=27 N=128, M=32 K=1024 N=10",
             "shape": f"M={m} K={k} N={n} f32 in",
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": library_ms,
@@ -341,6 +398,140 @@ def check_k3(torch, timer, ops, gen):
     return entry
 
 
+def check_k4(torch, timer, ops, gen):
+    """bitplane_matmul against its plain version at all 8 VGG-8 layer
+    shapes and every plane, bit-exact; bitserial_matmul through the kernel
+    against the same shift-add over the plain planes, bit for bit."""
+    n_cases = 0
+    for m, k, n in VGG8_SHAPES:
+        a = rand_i8(torch, (m, k), gen)
+        w = rand_i8(torch, (k, n), gen, -127)
+        for plane in range(8):
+            got = ops.bitplane_matmul_kernel(a, w, plane)
+            want = ops.bitplane_matmul_plain(a, w, plane)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"K4 not bit-exact at M={m} K={k} N={n} plane={plane}: "
+                    f"{(got != want).sum().item()} outputs differ")
+            n_cases += 1
+        w_scale = torch.rand(n, generator=gen, device="cuda") * 1e-2
+        bias = torch.randn(n, generator=gen, device="cuda")
+        a_scale = torch.tensor(0.02, device="cuda")
+        got = ops.bitserial_matmul(a, w, a_scale, w_scale, bias, relu=True)
+        with swapped(ops, "bitplane_matmul_kernel",
+                     ops.bitplane_matmul_plain):
+            want = ops.bitserial_matmul(a, w, a_scale, w_scale, bias,
+                                        relu=True)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K4 bitserial_matmul differs from its "
+                                 f"plain twin at M={m} K={k} N={n}")
+    # Timing at conv2, one plane (the sign plane).
+    m, k, n = VGG8_SHAPES[1]
+    a = rand_i8(torch, (m, k), gen)
+    w = rand_i8(torch, (k, n), gen, -127)
+    ms = timer.ms(lambda: ops.bitplane_matmul_kernel(a, w, 7))
+    plain_ms = timer.ms(lambda: ops.bitplane_matmul_plain(a, w, 7), iters=5)
+    # Yardstick: torch._int_mm on the plane, extracted beforehand (K and N
+    # are multiples of 8 and M > 16 at conv2, so nothing is padded).
+    bits = ((a.view(torch.uint8) >> 7) & 1).view(torch.int8)
+    library_ms = timer.ms(lambda: torch._int_mm(bits, w))
+    b_ms, b_by = bound_ms(m * k + k * n + m * n * 4, 2.0 * m * k * n,
+                          PEAK_INT8_OPS)
+    return {"name": "bitplane_matmul", "route": "cuda",
+            "source": "src/repro_torch/csrc/bitplane_matmul.cu",
+            "replaces": "src/repro/kernels/bitserial_matmul/kernel.py:62",
+            "max_abs_err": 0.0, "cases": n_cases,
+            "shape": f"M={m} K={k} N={n} (conv2), one plane",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": library_ms,
+            "library": "torch._int_mm on the pre-extracted plane"}
+
+
+def code_diff(torch, got, want, what: str) -> dict:
+    """The K5 tolerance: the f32 sums run in another order than the plain
+    version's (or the simulation's), so a code may move by one where
+    v * 128 lands within an ulp of a .5 boundary -- on at most 1e-3 of
+    the outputs, and never by more than one."""
+    d = (got.to(torch.int64) - want.to(torch.int64)).abs()
+    worst = int(d.max()) if d.numel() else 0
+    n_off = int((d > 0).sum())
+    share = n_off / max(d.numel(), 1)
+    if worst > 1 or share > 1e-3:
+        raise AssertionError(f"{what}: max |code diff| {worst}, "
+                             f"{n_off} of {d.numel()} codes differ")
+    return {"max_abs": worst, "codes_off_by_one": n_off,
+            "codes": d.numel()}
+
+
+def check_k5(torch, timer, ops, gen):
+    """caat_mac against its plain version through cim_macro_matmul at the
+    conv2 (1 tile), conv6 (4 tiles) and fc1 (8 tiles) shapes with a
+    sampled chip, ReLU on and off; and, with an ideal ADC, against the
+    behavioural macro simulation (core.macro.cim_matmul_sim)."""
+    from repro_torch.core import adc, macro
+    cfg = macro.nominal_config(rows=1152)
+    chip = macro.sample_chip(gen, cfg)
+    sim_chip = {"caat": chip["caat"], "adc": adc.ideal_adc(cfg.adc, "cuda")}
+    checks = []
+    for m, k, n in (VGG8_SHAPES[1], VGG8_SHAPES[5], VGG8_SHAPES[6]):
+        a = rand_i8(torch, (m, k), gen)
+        w = rand_i8(torch, (k, n), gen, -127)
+        # Full scale ~2.7 std of a random tile MAC: codes span the range.
+        v_fs = torch.tensor(0.02 * cfg.rows * 127.0 * 127.0, device="cuda")
+        for relu in (True, False):
+            got = ops.cim_macro_matmul(a, w, chip, v_fs, cfg, relu=relu)
+            with swapped(ops, "caat_mac_kernel", ops.caat_mac_plain):
+                want = ops.cim_macro_matmul(a, w, chip, v_fs, cfg,
+                                            relu=relu)
+            sim, _ = macro.cim_matmul_sim(a, w, sim_chip, v_fs, cfg,
+                                          relu=relu)
+            checks.append({
+                "shape": [m, k, n], "relu": relu,
+                "vs_plain": code_diff(torch, got, want,
+                                      f"K5 vs plain M={m} relu={relu}"),
+                "vs_sim": code_diff(torch, got, sim.to(torch.int32),
+                                    f"K5 vs sim M={m} relu={relu}")})
+    # Timing at conv2: one launch on its single row tile.
+    m, k, n = VGG8_SHAPES[1]
+    a = rand_i8(torch, (m, k), gen)
+    w = rand_i8(torch, (k, n), gen, -127)
+    from repro_torch.core import caat, numerics
+    w_eff, off = caat.effective_linear_weights(chip["caat"])
+    a_fold = ops.fold_planes(numerics.encode_pm1(a), w_eff).contiguous()
+    w_bits = numerics.encode_pm1(w).permute(2, 0, 1).contiguous()
+    fs_ratio = k * cfg.act_sum * cfg.w_sum / (0.02 * k * 127.0 * 127.0)
+    scalars = torch.tensor([1.0 / k, 0.0, fs_ratio, 1.0], device="cuda")
+    scalars[1] = off.to(torch.float32)
+    ms = timer.ms(lambda: ops.caat_mac_kernel(a_fold, w_bits, scalars))
+    plain_ms = timer.ms(lambda: ops.caat_mac_plain(a_fold, w_bits, scalars),
+                        iters=5)
+    w_f32 = w_bits.to(torch.float32)
+
+    def library():
+        # f32 bmm over the 9 planes (TF32 off) + the convert epilogue.
+        acc = torch.bmm(a_fold, w_f32).sum(0)
+        v = (acc * scalars[0] + scalars[1]) * scalars[2]
+        code = torch.clamp(torch.round(v * 128.0), -128, 127)
+        return torch.clamp_min(code, 0.0).to(torch.int32)
+
+    library_ms = timer.ms(library)
+    n_bytes = a_fold.numel() * 4 + w_bits.numel() + 16 + m * n * 4
+    b_ms, b_by = bound_ms(n_bytes, 2.0 * 9 * m * k * n, PEAK_F32_OPS)
+    return {"name": "caat_mac", "route": "cuda",
+            "source": "src/repro_torch/csrc/caat_mac.cu",
+            "replaces": "src/repro/kernels/caat_mac/kernel.py:84",
+            "max_abs_err": float(max(c[key]["max_abs"] for c in checks
+                                     for key in ("vs_plain", "vs_sim"))),
+            "error_unit": "ADC codes (|diff| <= 1 on <= 1e-3 of outputs)",
+            "checks": checks,
+            "shape": f"B={m} R={k} N={n} (conv2), 9 planes, one tile",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": library_ms,
+            "library": "torch.bmm over the 9 f32 planes (TF32 off) + "
+                       "epilogue",
+            "bound_rate": "f32 CUDA cores, 67 TFLOP/s"}
+
+
 # ---------------------------------------------------------------------------
 # Main path
 # ---------------------------------------------------------------------------
@@ -349,16 +540,12 @@ def check_k3(torch, timer, ops, gen):
 def plain_versions(cim_ops, paged_ops):
     """Route the three kernel wrappers to their plain twins (the replay;
     these calls are not counted as launches)."""
-    saved = (cim_ops.cim_matmul_kernel, paged_ops.paged_attention_kernel,
-             paged_ops.flash_prefill_kernel)
-    cim_ops.cim_matmul_kernel = cim_ops.cim_matmul_plain
-    paged_ops.paged_attention_kernel = paged_ops.paged_attention_plain
-    paged_ops.flash_prefill_kernel = paged_ops.flash_prefill_plain
-    try:
+    with swapped(cim_ops, "cim_matmul_kernel", cim_ops.cim_matmul_plain), \
+            swapped(paged_ops, "paged_attention_kernel",
+                    paged_ops.paged_attention_plain), \
+            swapped(paged_ops, "flash_prefill_kernel",
+                    paged_ops.flash_prefill_plain):
         yield
-    finally:
-        (cim_ops.cim_matmul_kernel, paged_ops.paged_attention_kernel,
-         paged_ops.flash_prefill_kernel) = saved
 
 
 def main_path(torch, cfg, cim_ops, paged_ops, *, device="cuda",
@@ -515,6 +702,160 @@ def main_path(torch, cfg, cim_ops, paged_ops, *, device="cuda",
     return result, launches, failures
 
 
+# ---------------------------------------------------------------------------
+# The VGG-8 deployment path
+# ---------------------------------------------------------------------------
+
+def vgg8_path(torch, cim_ops, bs_ops, caat_ops, *, device="cuda", cfg=None,
+              n_calib: int = 64, n_images: int = 64):
+    """The paper's VGG-8 deployment (repro_torch.launch.fig10) at ``cfg``'s
+    widths (default: the published VGG-8) with random weights from seed 0.
+    Checks the kernel plans bit for bit against their plain plans, runs
+    the cim plan raw and fine-tuned, and holds the CAAT macro op on every
+    cim layer's int8 inputs against the behavioural simulation with an
+    ideal ADC.  (``device``, ``cfg``, ``n_calib`` and ``n_images`` let it
+    be rehearsed at a reduced size on CPU.)"""
+    from repro_torch.configs import vgg8_cifar10
+    from repro_torch.core import adc, macro
+    from repro_torch.core import backend as backend_lib
+    from repro_torch.data import synthetic
+    from repro_torch.launch import fig10
+    from repro_torch.models import vgg
+
+    cfg = cfg or vgg8_cifar10.config()
+    failures = []
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    def gen(seed):
+        return torch.Generator(device=device).manual_seed(seed)
+
+    forward_s = {}
+
+    def timed(name, fn):
+        sync()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        forward_s[name] = time.perf_counter() - t
+        if not bool(torch.isfinite(out).all()):
+            failures.append(f"{name}: non-finite logits")
+        return out
+
+    t0 = time.perf_counter()
+    params = vgg.init_vgg8(gen(0), cfg)
+    images, _ = synthetic.synthetic_cifar(gen(99), n_images, cfg.n_classes,
+                                          cfg.image_size)
+    calib, _ = synthetic.synthetic_cifar(gen(7), n_calib, cfg.n_classes,
+                                         cfg.image_size)
+    cim_ops.launches = bs_ops.launches = caat_ops.launches = 0
+    a_scales = vgg.collect_activation_scales(params, calib, cfg)
+    frozen = vgg.freeze_vgg8(params, cfg, a_scales, mode="w8a8")
+
+    def forward(plan):
+        return vgg.vgg8_forward(frozen, images, cfg, mode=plan,
+                                a_scales=a_scales)
+
+    expected = {}   # launches each kernel must show, per the path's shapes
+    w8a8 = timed("w8a8", lambda: forward("w8a8"))
+    expected["cim_matmul"] = 2 * len(vgg.VGG8_LAYER_PATHS)
+    for residency in (False, True):
+        plan = backend_lib.DeploymentPlan(default="w8a8_kernel",
+                                          residency=residency)
+        name = "w8a8_kernel" + ("+residency" if residency else "")
+        if not torch.equal(timed(name, lambda: forward(plan)), w8a8):
+            failures.append(f"{name} logits differ from plain w8a8")
+    expected["bitplane_matmul"] = 8 * len(vgg.VGG8_LAYER_PATHS)
+    bitserial = timed("bitserial", lambda: forward("bitserial"))
+    if not torch.equal(timed("bitserial_kernel",
+                             lambda: forward("bitserial_kernel")),
+                       bitserial):
+        failures.append("bitserial_kernel logits differ from plain "
+                        "bitserial")
+    # bitserial vs w8a8: equal up to the f32 shift-add rounding past 2**24;
+    # a different argmax is a tie only inside that rounding.
+    rounding = (bitserial - w8a8).abs().amax(-1)
+    top2 = w8a8.topk(2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    differ = bitserial.argmax(-1) != w8a8.argmax(-1)
+    ties = differ & (gap <= 2 * rounding)
+    if bool((differ & ~ties).any()):
+        failures.append("bitserial argmax differs from w8a8 beyond the "
+                        "shift-add rounding")
+
+    # The cim plan: calibrated full scales, 8 sampled chips, per-channel
+    # fine-tunes, at batch 32.
+    d = fig10.deploy(params, cfg, "cim", calib, 0, device)
+    cim_imgs = images[:32]
+    stats_raw: list = []
+    timed("cim_raw", lambda: fig10.batched_logits(
+        d["raw"], cim_imgs, cfg, "cim", d["a_scales"], d["chips"], 32,
+        stats_raw))
+    calls = []
+    sim = macro.cim_matmul_sim
+
+    def recording_sim(a, w, chip, v_fs, mcfg, relu=True):
+        calls.append((a, w, chip, v_fs, mcfg, relu))
+        return sim(a, w, chip, v_fs, mcfg, relu=relu)
+
+    stats_ft: list = []
+    with swapped(macro, "cim_matmul_sim", recording_sim):
+        ft = timed("cim_finetuned", lambda: fig10.batched_logits(
+            d["finetuned"], cim_imgs, cfg, "cim", d["a_scales"], d["chips"],
+            32, stats_ft))
+    layers = fig10.layer_report("cim", cfg, stats_ft)
+    # The CAAT macro op on each cim layer's actual int8 inputs: one launch
+    # per row tile.
+    expected["caat_mac"] = sum(-(-sp.in_dim // sp.macro.rows)
+                               for sp in cfg.layer_specs())
+    k5 = []
+    for path, (a, w, chip, v_fs, mcfg, relu) in zip(vgg.VGG8_LAYER_PATHS,
+                                                    calls):
+        got = caat_ops.cim_macro_matmul(a, w, chip, v_fs, mcfg, relu=relu)
+        ideal = {"caat": chip["caat"], "adc": adc.ideal_adc(mcfg.adc,
+                                                              device)}
+        want, _ = sim(a, w, ideal, v_fs, mcfg, relu=relu)
+        try:
+            k5.append({"layer": path, **code_diff(
+                torch, got, want.to(torch.int32), f"K5 on {path}")})
+        except AssertionError as e:
+            failures.append(str(e))
+    sync()
+    launches = {"cim_matmul": cim_ops.launches,
+                "bitplane_matmul": bs_ops.launches,
+                "caat_mac": caat_ops.launches}
+    if len(calls) != len(vgg.VGG8_LAYER_PATHS):
+        failures.append(f"{len(calls)} cim layers recorded, not 8")
+    for name, n in launches.items():
+        if n != expected[name] and device == "cuda":
+            failures.append(f"{name} launched {n} times on the vgg8 path, "
+                            f"not {expected[name]}")
+    result = {"phase": "vgg8",
+              "device": (torch.cuda.get_device_name(0) if device == "cuda"
+                         else device),
+              "image_size": cfg.image_size, "images": n_images,
+              "cim_images": int(cim_imgs.shape[0]),
+              "seconds": time.perf_counter() - t0, "forward_s": forward_s,
+              "launches": launches, "launches_expected": expected,
+              "bitserial_vs_w8a8": {
+                  "max_abs_logit_diff": float(rounding.max()),
+                  "argmax_differs": int(differ.sum()),
+                  "ties": int(ties.sum())},
+              "cim_layers": layers,
+              "cim_agree_with_w8a8": int(
+                  (ft.argmax(-1) == w8a8[:32].argmax(-1)).sum()),
+              "macro_energy_j": fig10.macro_energy_j(layers),
+              "macro_energy_source": "65nm macro energy model of the "
+                                     "fine-tuned cim forward's conversions",
+              "k5_vs_sim": k5,
+              "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                              if device == "cuda" else None)}
+    result["ok"] = not failures
+    return result, launches, failures
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--skip-main", action="store_true")
@@ -526,6 +867,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
+    from repro_torch.kernels.bitserial_matmul import ops as bs_ops
+    from repro_torch.kernels.caat_mac import ops as caat_ops
     from repro_torch.kernels.cim_matmul import ops as cim_ops
     from repro_torch.kernels.paged_attention import ops as paged_ops
 
@@ -552,30 +895,43 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(1234)
     timer = Timer(torch)
     kernels = []
-    for check in (check_k1, check_k2, check_k3):
-        entry = check(torch, timer, cim_ops if check is check_k1
-                      else paged_ops, gen)
+    for check, ops in ((check_k1, cim_ops), (check_k2, paged_ops),
+                       (check_k3, paged_ops), (check_k4, bs_ops),
+                       (check_k5, caat_ops)):
+        t = time.perf_counter()
+        entry = check(torch, timer, ops, gen)
+        entry["check_s"] = time.perf_counter() - t
         kernels.append(entry)
         emit({"phase": "kernel", **entry})
     del timer
 
-    launches = {k["name"]: None for k in kernels}
+    # Launches by path: each path is driven with every count set to 0
+    # just before it and read just after.
+    by_path = {}
     if not args.skip_main:
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
         from repro_torch import configs
-        cfg = dataclasses.replace(configs.get_config("qwen3-8b"),
-                                  kv_cache_dtype="int8")
-        result, launches, failures = main_path(torch, cfg, cim_ops,
-                                               paged_ops)
-        emit(result)
-        report["main"] = result
-        if failures:
-            (out_dir / "chip_smoke.json").write_text(
-                json.dumps(report, indent=1))
-            raise AssertionError("; ".join(failures))
+        paths = (
+            ("main", lambda: main_path(
+                torch, dataclasses.replace(configs.get_config("qwen3-8b"),
+                                           kv_cache_dtype="int8"),
+                cim_ops, paged_ops)),
+            ("vgg8", lambda: vgg8_path(torch, cim_ops, bs_ops, caat_ops)))
+        for path, drive in paths:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            result, by_path[path], failures = drive()
+            result["nvidia_smi"] = smi
+            emit(result)
+            report[path] = result
+            if failures:
+                (out_dir / "chip_smoke.json").write_text(
+                    json.dumps(report, indent=1))
+                raise AssertionError("; ".join(failures))
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        counts = {p: c[k["name"]] for p, c in by_path.items()
+                  if k["name"] in c}
+        k["launches"] = sum(counts.values()) if counts else None
+        k["launches_by_path"] = counts
     report["kernels"] = kernels
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     emit({"kernels": kernels})

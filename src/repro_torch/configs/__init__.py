@@ -1,6 +1,8 @@
 """Config registry for the PyTorch port: ``get_config`` and the reduced
 smoke variants.  Only the dense main-path architecture is registered so
-far; the other families arrive with their model slices."""
+far; the other families arrive with their model slices.  The paper's
+VGG-8 deployment lives beside them, as in the JAX package:
+``repro_torch.configs.vgg8_cifar10.config()``."""
 from __future__ import annotations
 
 import dataclasses

@@ -1,4 +1,5 @@
-"""Carry the JAX package's parameters and KV pages across to the port.
+"""Carry the JAX package's parameters, KV pages, sampled chips and
+fine-tunes across to the port.
 
 Inputs are the JAX trees with numpy leaves (``jax.tree.map(np.asarray,
 tree)`` on the caller's side); this module never imports JAX.  bfloat16
@@ -10,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core import quant
+from repro_torch.core import calibration, quant
 
 
 def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
@@ -61,4 +62,37 @@ def pages_from_jax(pages, *, device="cpu") -> dict:
                                       tensor_from_numpy(leaf.scale, device))
         else:
             out[name] = tensor_from_numpy(leaf, device)
+    return out
+
+
+def chip_from_jax(sample, *, device="cpu") -> dict:
+    """The JAX package's ``MacroSample`` (``{"caat": {...}, "adc":
+    {"inl_lut": ...}}``, numpy leaves) -> the port's chip.  Sampled arrays
+    cross as they are: ``jax.random`` and ``torch.Generator`` draw
+    different numbers, so a comparison carries the chip across instead of
+    re-sampling it."""
+    return {"caat": _convert(dict(sample["caat"]), device),
+            "adc": _convert(dict(sample["adc"]), device)}
+
+
+def finetune_from_jax(ft, *, device="cpu"):
+    """A JAX ``FineTuneParams`` (array-like gain and offset) -> the
+    port's."""
+    return calibration.FineTuneParams(
+        gain=tensor_from_numpy(ft.gain, device),
+        offset=tensor_from_numpy(ft.offset, device))
+
+
+def vgg_params_from_jax(layers, *, device="cpu") -> list[dict]:
+    """The JAX package's VGG-8 layer list (per-layer dicts with numpy
+    leaves), master (``w``, ``b``) or frozen (``w_q``, ``w_scale``,
+    ``a_scale``, ``b``, ``v_fs_mac``, ``ft_gain``, ``ft_offset``,
+    ``plane_fs``, a nested ``chip``) -> the port's list."""
+    out = []
+    for layer in layers:
+        p = {k: tensor_from_numpy(v, device) for k, v in layer.items()
+             if k != "chip"}
+        if "chip" in layer:
+            p["chip"] = chip_from_jax(layer["chip"], device=device)
+        out.append(p)
     return out

@@ -10,7 +10,17 @@ patterns (fnmatch) to backends.  Ported backends:
                       plain PyTorch (the plain twin of ``w8a8_kernel``);
 * ``w8a8_kernel``  -- the same semantics through the hand-written CUDA
                       kernel (``kernels/cim_matmul``), with the f32 -> int8
-                      input quantization fused into the kernel prologue.
+                      input quantization fused into the kernel prologue;
+* ``bitserial``    -- the prior-work baseline: one pass per activation
+                      bit-plane, digital shift-add, optional per-plane ADC;
+* ``bitserial_kernel`` -- the same baseline as 8 launches of the CUDA
+                      bit-plane kernel (``kernels/bitserial_matmul``);
+* ``cim``          -- the behavioural macro simulation (CAAT mismatch, ADC
+                      INL, per-row-tile conversions) with the output-based
+                      fine-tune affine.
+
+``qat`` (fake-quant training) is not ported yet: ``get_backend("qat")``
+raises ``NotImplementedError``.
 
 Plans serialize to the same JSON as the JAX package's, so a plan written
 by either package loads in the other.
@@ -24,9 +34,16 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.core import calibration as cal_lib
+from repro_torch.core import macro as macro_lib
 from repro_torch.core import quant
 
 Params = dict[str, Any]
+
+# Backends of the JAX package that the port has not reached yet, with the
+# ROADMAP item that carries them.
+_NOT_PORTED = {"qat": "ROADMAP queue 1, item 10: it waits for the "
+                       "training slice"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,8 +54,14 @@ class LinearSpec:
     relu: bool = False            # fuse ReLU into the conversion epilogue
     mode: str = "exact"
     dtype: Any = torch.bfloat16   # compute dtype for exact
+    # CiM-sim knobs (mode == 'cim'):
+    macro: macro_lib.MacroConfig = macro_lib.MacroConfig()
+    # Bit-serial baseline knobs (mode == 'bitserial'):
+    plane_adc_bits: int | None = None   # per-plane ADC bits (None = exact)
+    dynamic_plane_fs: bool = False      # runtime autorange (study only)
 
     def __post_init__(self):
+        _check_ported(self.mode)
         if self.mode not in _REGISTRY:
             raise ValueError(
                 f"unknown mode {self.mode!r}; expected one of "
@@ -58,9 +81,16 @@ def register_backend(name: str) -> Callable[[type], type]:
     return deco
 
 
+def _check_ported(name) -> None:
+    if isinstance(name, str) and name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"backend {name!r} is not ported yet ({_NOT_PORTED[name]})")
+
+
 def get_backend(name: "str | ExecutionBackend") -> "ExecutionBackend":
     if isinstance(name, ExecutionBackend):
         return name
+    _check_ported(name)
     try:
         return _REGISTRY[name]
     except KeyError:
@@ -82,8 +112,22 @@ class ExecutionBackend:
     name: str = "?"
     frozen: bool = False
     deploys_int8: bool = False
-    needs_chip: bool = False
+    needs_chip: bool = False      # does apply() need a sampled chip?
     supports_out_requant: bool = False
+
+    def init(self, gen: torch.Generator, spec: LinearSpec,
+             scale: float | None = None) -> Params:
+        """Master (float) parameters with fan-in scaled init, on
+        ``gen``'s device."""
+        if scale is None:
+            scale = spec.in_dim ** -0.5
+        w = torch.randn((spec.in_dim, spec.out_dim), generator=gen,
+                        device=gen.device) * scale
+        p: Params = {"w": w.to(spec.dtype)}
+        if spec.use_bias:
+            p["b"] = torch.zeros(spec.out_dim, dtype=torch.float32,
+                                 device=gen.device)
+        return p
 
     def freeze(self, params: Params, spec: LinearSpec | None = None,
                a_scale: float = 1.0, **kw) -> Params:
@@ -91,8 +135,30 @@ class ExecutionBackend:
         return params
 
     def apply(self, params: Params, x, spec: LinearSpec | None = None, *,
-              a_scale=None, out_scale=None):
+              a_scale=None, chip=None, return_stats: bool = False,
+              out_scale=None):
+        """Run the linear on a float activation or a QTensor.  With
+        ``return_stats`` returns (y, stats): the conversion accounting
+        (n_conversions, n_passes, relu_fused, neg_fraction)."""
         raise NotImplementedError
+
+    def _bytes_moved(self, spec: LinearSpec, batch: int) -> float:
+        """Approximate device-memory traffic of one apply."""
+        k, n = spec.in_dim, spec.out_dim
+        return 2.0 * (k * n + batch * k) + 2.0 * batch * n
+
+    def flops_per_byte(self, spec: LinearSpec, batch: int = 1) -> float:
+        """Arithmetic intensity of one apply at the given batch."""
+        return (2.0 * batch * spec.in_dim * spec.out_dim
+                / self._bytes_moved(spec, batch))
+
+    def stats(self, spec: LinearSpec, batch: int = 1) -> dict:
+        """Static (shape-derived) conversion accounting for one apply."""
+        return {"n_conversions": 0.0, "n_passes": 1.0, "relu_fused": 0.0,
+                "neg_fraction": 0.0}
+
+    def _finish(self, y, stats, return_stats):
+        return (y, stats) if return_stats else y
 
 
 def _w8a8_freeze(params: Params, a_scale) -> Params:
@@ -111,6 +177,13 @@ def _w8a8_freeze(params: Params, a_scale) -> Params:
     return frozen
 
 
+def _batch_elems(x) -> float:
+    b = 1.0
+    for d in x.shape[:-1]:
+        b *= d
+    return b
+
+
 def _quantize_input(params: Params, x, a_scale):
     """x -> (int8 codes, scale).  A QTensor input keeps its own scale (the
     residency contract); a float input is quantized on the frozen
@@ -127,7 +200,8 @@ def _quantize_input(params: Params, x, a_scale):
 class ExactBackend(ExecutionBackend):
     """Float matmul baseline; freeze() is the identity."""
 
-    def apply(self, params, x, spec=None, *, a_scale=None, out_scale=None):
+    def apply(self, params, x, spec=None, *, a_scale=None, chip=None,
+              return_stats=False, out_scale=None):
         if isinstance(x, quant.QTensor):
             x = x.dequant()
         dtype = spec.dtype if spec is not None else x.dtype
@@ -136,7 +210,7 @@ class ExactBackend(ExecutionBackend):
             y = y + params["b"].to(dtype)
         if spec is not None and spec.relu:
             y = torch.clamp_min(y, 0)
-        return y
+        return self._finish(y, self.stats(spec), return_stats)
 
 
 class _SingleConversionBackend(ExecutionBackend):
@@ -145,6 +219,7 @@ class _SingleConversionBackend(ExecutionBackend):
     frozen = True
     deploys_int8 = True
     supports_out_requant = True
+    n_passes = 1.0
     fused_input_quant = False   # quantize float inputs in the kernel prologue
 
     def freeze(self, params, spec=None, a_scale=1.0, **kw):
@@ -153,7 +228,8 @@ class _SingleConversionBackend(ExecutionBackend):
     def _matmul(self, xq, w_q, a_s, w_scale, bias, relu, out_scale=None):
         raise NotImplementedError
 
-    def apply(self, params, x, spec=None, *, a_scale=None, out_scale=None):
+    def apply(self, params, x, spec=None, *, a_scale=None, chip=None,
+              return_stats=False, out_scale=None):
         relu = spec.relu if spec is not None else False
         if self.fused_input_quant and not isinstance(x, quant.QTensor):
             a_s = params.get("a_scale", a_scale)
@@ -169,7 +245,23 @@ class _SingleConversionBackend(ExecutionBackend):
             if y.dtype != torch.int8:
                 y = quant.quantize(y, out_scale)
             y = quant.QTensor(y, out_scale)
-        return y
+        stats = {"n_conversions": _batch_elems(x) * params["w_q"].shape[-1]
+                 * self.n_passes,
+                 "n_passes": self.n_passes,
+                 "relu_fused": 1.0 if relu else 0.0,
+                 "neg_fraction": 0.0}
+        return self._finish(y, stats, return_stats)
+
+    def stats(self, spec, batch=1):
+        return {"n_conversions": float(batch * spec.out_dim) * self.n_passes,
+                "n_passes": self.n_passes,
+                "relu_fused": 1.0 if spec.relu else 0.0,
+                "neg_fraction": 0.0}
+
+    def _bytes_moved(self, spec, batch):
+        k, n = spec.in_dim, spec.out_dim
+        # int8 weights + int8 activations, one f32 epilogue write per pass.
+        return self.n_passes * (k * n + batch * k) + 4.0 * batch * n
 
 
 @register_backend("w8a8")
@@ -196,11 +288,138 @@ class W8A8KernelBackend(_SingleConversionBackend):
                                out_scale=out_scale, relu=relu)
 
 
+@register_backend("bitserial")
+class BitserialBackend(_SingleConversionBackend):
+    """Prior-work baseline: one pass per activation bit + digital
+    shift-add, one conversion per activation bit.  With
+    ``spec.plane_adc_bits`` each plane's partial sum is converted against
+    a static calibrated full scale (frozen as 'plane_fs'); the runtime
+    autorange is an explicit opt-in (``spec.dynamic_plane_fs``)."""
+
+    n_passes = 8.0
+
+    def freeze(self, params, spec=None, a_scale=1.0, *,
+               plane_full_scale=None, calib_a_q=None, **kw):
+        frozen = _w8a8_freeze(params, a_scale)
+        if plane_full_scale is not None:
+            frozen["plane_fs"] = torch.as_tensor(
+                plane_full_scale, dtype=torch.float32,
+                device=frozen["w_q"].device)
+        elif calib_a_q is not None:
+            frozen["plane_fs"] = quant.calibrate_plane_full_scale(
+                calib_a_q, frozen["w_q"])
+        return frozen
+
+    def apply(self, params, x, spec=None, *, a_scale=None, chip=None,
+              return_stats=False, out_scale=None):
+        relu = spec.relu if spec is not None else False
+        xq, a_s = _quantize_input(params, x, a_scale)
+        y = quant.bitserial_matmul(
+            xq, params["w_q"], a_s, params["w_scale"],
+            bias=params.get("b"), relu=relu,
+            plane_adc_bits=spec.plane_adc_bits if spec is not None else None,
+            plane_full_scale=params.get("plane_fs"),
+            dynamic_plane_fs=(spec.dynamic_plane_fs if spec is not None
+                              else False))
+        if out_scale is not None:
+            y = quant.QTensor(quant.quantize(y, out_scale), out_scale)
+        stats = {"n_conversions": _batch_elems(x) * params["w_q"].shape[-1]
+                 * 8.0,
+                 "n_passes": 8.0,
+                 "relu_fused": 0.0,   # ReLU follows the digital shift-add
+                 "neg_fraction": 0.0}
+        return self._finish(y, stats, return_stats)
+
+
+@register_backend("bitserial_kernel")
+class BitserialKernelBackend(_SingleConversionBackend):
+    """The bit-serial baseline through the CUDA bit-plane kernel: 8
+    launches + the shift-add in plain PyTorch (on CPU tensors the kernel's
+    plain twin runs)."""
+
+    n_passes = 8.0
+
+    def _matmul(self, xq, w_q, a_s, w_scale, bias, relu, out_scale=None):
+        from repro_torch.kernels.bitserial_matmul import ops as kops
+        # out_scale is applied by the base apply: the bit-plane kernel's
+        # digital shift-add has no requant slot.
+        return kops.bitserial_matmul(xq, w_q, a_s, w_scale, bias=bias,
+                                     relu=relu)
+
+
+@register_backend("cim")
+class CimBackend(ExecutionBackend):
+    """Behavioural macro simulation: CAAT mismatch + ADC INL + per-row-tile
+    conversions, with the output-based fine-tune affine.  Needs a chip
+    sample and the spec's macro config at freeze/apply time."""
+
+    frozen = True
+    deploys_int8 = True
+    needs_chip = True
+    supports_out_requant = True
+
+    def freeze(self, params, spec=None, a_scale=1.0, *, chip=None,
+               finetune=None, v_fs_mac=None, **kw):
+        if spec is None:
+            raise ValueError("cim freeze needs a LinearSpec (macro config)")
+        frozen = _w8a8_freeze(params, a_scale)
+        dev = frozen["w_q"].device
+        if v_fs_mac is None:
+            v_fs_mac = macro_lib.default_v_fs(127.0, 127.0, spec.in_dim,
+                                              spec.macro.rows)
+        frozen["v_fs_mac"] = torch.as_tensor(v_fs_mac, dtype=torch.float32,
+                                             device=dev)
+        ft = finetune or cal_lib.identity_finetune(dev)
+        frozen["ft_gain"] = torch.as_tensor(ft.gain, dtype=torch.float32,
+                                            device=dev)
+        frozen["ft_offset"] = torch.as_tensor(ft.offset, dtype=torch.float32,
+                                              device=dev)
+        if chip is not None:
+            frozen["chip"] = chip
+        return frozen
+
+    def apply(self, params, x, spec=None, *, a_scale=None, chip=None,
+              return_stats=False, out_scale=None):
+        if spec is None:
+            raise ValueError("cim apply needs a LinearSpec (macro config)")
+        the_chip = chip if chip is not None else params.get("chip")
+        if the_chip is None:
+            raise ValueError("cim mode needs a chip sample")
+        xq, a_s = _quantize_input(params, x, a_scale)
+        lead = xq.shape[:-1]
+        codes, sim = macro_lib.cim_matmul_sim(
+            xq.reshape(-1, xq.shape[-1]), params["w_q"], the_chip,
+            params["v_fs_mac"], spec.macro, relu=spec.relu)
+        adc_lsb = params["v_fs_mac"] / (2.0 ** (spec.macro.adc.n_bits - 1))
+        y = codes * adc_lsb * (a_s * params["w_scale"])
+        y = y * params["ft_gain"] + params["ft_offset"]
+        if spec.use_bias:
+            y = y + params["b"]
+        # Fine-tune offsets can push a fused-ReLU output below 0: re-clamp.
+        if spec.relu:
+            y = torch.clamp_min(y, 0.0)
+        y = y.reshape(*lead, -1)
+        if out_scale is not None:
+            y = quant.QTensor(quant.quantize(y, out_scale), out_scale)
+        stats = {"n_conversions": sim["n_conversions"], "n_passes": 1.0,
+                 "relu_fused": sim["relu_fused"],
+                 "neg_fraction": sim["neg_fraction"],
+                 "n_tiles": sim["n_tiles"]}
+        return self._finish(y, stats, return_stats)
+
+    def stats(self, spec, batch=1):
+        n_tiles = -(-spec.in_dim // spec.macro.rows)
+        return {"n_conversions": float(batch * spec.out_dim * n_tiles),
+                "n_passes": 1.0,
+                "relu_fused": 1.0 if (spec.relu and n_tiles == 1) else 0.0,
+                "neg_fraction": 0.0,
+                "n_tiles": float(n_tiles)}
+
+
 @dataclasses.dataclass(frozen=True)
 class LayerRule:
     """Backend + optional calibration overrides for the layers a pattern
-    matches (``plane_adc_bits`` round-trips through JSON for plans shared
-    with the JAX package; no ported backend reads it yet)."""
+    matches."""
     backend: str
     a_scale: float | None = None
     plane_adc_bits: int | None = None
@@ -284,6 +503,7 @@ def load_plan(spec: str) -> DeploymentPlan:
     """Parse a plan from a CLI string: a backend name, inline JSON, or a
     path to a JSON file."""
     spec = spec.strip()
+    _check_ported(spec)
     if spec.startswith("{"):
         return DeploymentPlan.from_json(spec)
     if spec in _REGISTRY:

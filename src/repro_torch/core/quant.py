@@ -13,6 +13,8 @@ import dataclasses
 
 import torch
 
+from repro_torch.core import numerics
+
 INT8_MIN, INT8_MAX = -128, 127
 
 
@@ -86,4 +88,63 @@ def w8a8_matmul(a_q, w_q, a_scale, w_scale, bias=None, relu: bool = False,
         y = torch.clamp_min(y, 0.0)
     if out_scale is not None:
         return quantize(y, out_scale)
+    return y
+
+
+def calibrate_plane_full_scale(a_q: torch.Tensor, w_q: torch.Tensor,
+                               nbits: int = 8, margin: float = 1.1
+                               ) -> torch.Tensor:
+    """Static per-plane ADC full scales for :func:`bitserial_matmul`: the
+    per-plane |partial sum| envelope on a calibration batch, times a
+    safety margin.  Returns [nbits] f32."""
+    planes = numerics.encode_twos_complement_planes(a_q, nbits)
+    fs = []
+    for k in range(nbits):
+        psum = int8_matmul_int32(planes[..., k], w_q)
+        fs.append(torch.clamp_min(psum.abs().amax().to(torch.float32), 1.0))
+    return torch.stack(fs) * margin
+
+
+def bitserial_matmul(a_q, w_q, a_scale, w_scale, bias=None,
+                     relu: bool = False, plane_adc_bits: int | None = None,
+                     nbits: int = 8, plane_full_scale=None,
+                     dynamic_plane_fs: bool = False) -> torch.Tensor:
+    """Bit-serial-activation baseline (the paper's prior works): one pass
+    per two's-complement activation bit-plane against the full int8
+    weights, each plane's partial sum through its own conversion
+    (optionally a ``plane_adc_bits`` ADC on a static full scale, or the
+    runtime-autorange study path), shift-added in f32 from plane 0 up.
+
+    With ``plane_adc_bits=None`` the result equals :func:`w8a8_matmul`
+    while |acc| stays below 2**24; above it the f32 shift-add rounds, in
+    the reference's order."""
+    if plane_adc_bits is not None and plane_full_scale is None \
+            and not dynamic_plane_fs:
+        raise ValueError(
+            "plane_adc_bits needs a static plane_full_scale (see "
+            "calibrate_plane_full_scale); pass dynamic_plane_fs=True to "
+            "explicitly opt into the non-deployable runtime-autorange path")
+    planes = numerics.encode_twos_complement_planes(a_q, nbits)
+    acc = torch.zeros((*a_q.shape[:-1], w_q.shape[1]), dtype=torch.float32,
+                      device=a_q.device)
+    for k in range(nbits):
+        psum = int8_matmul_int32(planes[..., k], w_q).to(torch.float32)
+        if plane_adc_bits is not None:
+            half = 2 ** (plane_adc_bits - 1)
+            if plane_full_scale is not None:
+                fs = torch.as_tensor(plane_full_scale, dtype=torch.float32,
+                                     device=a_q.device)
+                lsb = (fs[k] if fs.ndim else fs) / half
+                psum = torch.clamp(torch.round(psum / lsb), -half,
+                                   half - 1) * lsb
+            else:
+                lsb = torch.clamp_min(psum.abs().amax(), 1e-6) / half
+                psum = torch.round(psum / lsb) * lsb
+        weight = -(2.0 ** (nbits - 1)) if k == nbits - 1 else 2.0 ** k
+        acc = acc + weight * psum
+    y = acc * (a_scale * w_scale)
+    if bias is not None:
+        y = y + bias
+    if relu:
+        y = torch.clamp_min(y, 0.0)
     return y

@@ -12,16 +12,14 @@
 // bytes (K*N weight bytes over 3.35 TB/s); at prefill (M = 64..512) the
 // int8 tensor-core rate starts to matter.
 //
-// Design (simple first): 64x64 output tiles, 4 warps of 32x32, K in steps
-// of 64 through shared memory, int8 tensor cores through
-// mma.sync.m16n8k32 (s8 x s8 -> s32).  The W tile is transposed into a
-// K-contiguous [n][k] layout on its way into shared memory so that both
-// operand fragments are single 32-bit shared loads; rows are padded to 80
-// bytes so fragment reads are bank-conflict free.  The f32 -> int8
-// prologue quantization happens on the A-tile load, and the epilogue runs
-// in registers, so neither the f32 activation's int8 copy nor the int32
+// Design (simple first): the int8 tile machinery of int8_tiles.cuh (64x64
+// output tiles, 4 warps of 32x32, K in steps of 64 through shared memory,
+// mma.sync.m16n8k32 s8 x s8 -> s32).  The f32 -> int8 prologue
+// quantization happens on the A-tile load, and the epilogue runs in
+// registers, so neither the f32 activation's int8 copy nor the int32
 // accumulator ever reaches device memory.  Ragged M/N/K edges are masked
-// in the tile loads and the epilogue (K and N must be multiples of 4).
+// in the tile loads (at byte granularity where K or N is not a multiple
+// of 4, e.g. VGG-8's conv1 K = 27 and head N = 10) and in the epilogue.
 // No pipelining, no TMA, no wgmma yet: those come with tuning.
 //
 // Bit-exactness with the plain PyTorch version: int32 sums do not depend
@@ -29,13 +27,11 @@
 // contracted into an FMA or turned into a reciprocal multiply, and rintf
 // rounds half to even like torch.round.
 
-#include "common.cuh"
+#include "int8_tiles.cuh"
 
 namespace {
 
-constexpr int BM = 64, BN = 64, BK = 64;
-constexpr int THREADS = 128;       // 4 warps: 2 along M x 2 along N
-constexpr int SROW = BK + 16;      // shared row pitch in bytes
+using namespace repro::i8;
 
 __device__ __forceinline__ int quant_a(float a, float s) {
   float q = rintf(__fdiv_rn(a, s));
@@ -43,18 +39,39 @@ __device__ __forceinline__ int quant_a(float a, float s) {
   return (int)q;
 }
 
-__device__ __forceinline__ uint32_t pack4(int b0, int b1, int b2, int b3) {
-  return (uint32_t)(b0 & 0xff) | ((uint32_t)(b1 & 0xff) << 8) |
-         ((uint32_t)(b2 & 0xff) << 16) | ((uint32_t)(b3 & 0xff) << 24);
-}
+struct Identity {
+  __device__ __forceinline__ uint32_t operator()(uint32_t v) const {
+    return v;
+  }
+};
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// f32 A tile quantized to int8 on its way into sA [m][k].
+__device__ __forceinline__ void load_a_tile_f32(int8_t* sA, const float* a,
+                                                float as, int m0, int k0,
+                                                int M, int K) {
+  const bool vec = (K & 3) == 0;
+  for (int i = threadIdx.x; i < BM * (BK / 4); i += THREADS) {
+    const int r = i / (BK / 4), c4 = (i % (BK / 4)) * 4;
+    const int gm = m0 + r, gk = k0 + c4;
+    uint32_t packed = 0;
+    if (gm < M) {
+      const float* row = a + (size_t)gm * K;
+      if (vec) {
+        if (gk < K) {
+          const float4 v = *reinterpret_cast<const float4*>(row + gk);
+          packed = pack4(quant_a(v.x, as), quant_a(v.y, as),
+                         quant_a(v.z, as), quant_a(v.w, as));
+        }
+      } else {
+        int q[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          q[j] = gk + j < K ? quant_a(row[gk + j], as) : 0;
+        packed = pack4(q[0], q[1], q[2], q[3]);
+      }
+    }
+    *reinterpret_cast<uint32_t*>(sA + r * SROW + c4) = packed;
+  }
 }
 
 template <bool F32_IN, bool RELU, bool REQUANT>
@@ -83,71 +100,14 @@ cim_matmul_kernel(const void* __restrict__ a, const int8_t* __restrict__ w,
       for (int c = 0; c < 4; ++c) acc[i][j][c] = 0;
 
   for (int k0 = 0; k0 < K; k0 += BK) {
-    // A tile: 4-byte groups along K (K % 4 == 0: a group is all in or out).
-    for (int i = tid; i < BM * (BK / 4); i += THREADS) {
-      const int r = i / (BK / 4), c4 = (i % (BK / 4)) * 4;
-      const int gm = m0 + r, gk = k0 + c4;
-      uint32_t packed = 0;
-      if (gm < M && gk < K) {
-        if (F32_IN) {
-          const float4 v = *reinterpret_cast<const float4*>(
-              static_cast<const float*>(a) + (size_t)gm * K + gk);
-          packed = pack4(quant_a(v.x, as), quant_a(v.y, as),
-                         quant_a(v.z, as), quant_a(v.w, as));
-        } else {
-          packed = *reinterpret_cast<const uint32_t*>(
-              static_cast<const int8_t*>(a) + (size_t)gm * K + gk);
-        }
-      }
-      *reinterpret_cast<uint32_t*>(sA + r * SROW + c4) = packed;
-    }
-    // W tile: 4x4-byte micro-tiles, transposed to K-contiguous columns.
-    for (int i = tid; i < (BK / 4) * (BN / 4); i += THREADS) {
-      const int kq = i / (BN / 4), nq = i % (BN / 4);
-      const int gk = k0 + kq * 4, gn = n0 + nq * 4;
-      uint32_t r[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        r[j] = (gk + j < K && gn < N)
-                   ? *reinterpret_cast<const uint32_t*>(
-                         w + (size_t)(gk + j) * N + gn)
-                   : 0u;
-      const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140);
-      const uint32_t t1 = __byte_perm(r[0], r[1], 0x7362);
-      const uint32_t t2 = __byte_perm(r[2], r[3], 0x5140);
-      const uint32_t t3 = __byte_perm(r[2], r[3], 0x7362);
-      const uint32_t col[4] = {
-          __byte_perm(t0, t2, 0x5410), __byte_perm(t0, t2, 0x7632),
-          __byte_perm(t1, t3, 0x5410), __byte_perm(t1, t3, 0x7632)};
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        *reinterpret_cast<uint32_t*>(sB + (nq * 4 + j) * SROW + kq * 4) =
-            col[j];
-    }
+    if (F32_IN)
+      load_a_tile_f32(sA, static_cast<const float*>(a), as, m0, k0, M, K);
+    else
+      load_a_tile(sA, static_cast<const int8_t*>(a), m0, k0, M, K,
+                  Identity());
+    load_w_tile(sB, w, k0, n0, K, N);
     __syncthreads();
-
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      uint32_t af[2][4], bf[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int8_t* base = sA + (wm * 32 + mi * 16 + g) * SROW + kk + t * 4;
-        af[mi][0] = *reinterpret_cast<const uint32_t*>(base);
-        af[mi][1] = *reinterpret_cast<const uint32_t*>(base + 8 * SROW);
-        af[mi][2] = *reinterpret_cast<const uint32_t*>(base + 16);
-        af[mi][3] = *reinterpret_cast<const uint32_t*>(base + 8 * SROW + 16);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int8_t* base = sB + (wn * 32 + ni * 8 + g) * SROW + kk + t * 4;
-        bf[ni][0] = *reinterpret_cast<const uint32_t*>(base);
-        bf[ni][1] = *reinterpret_cast<const uint32_t*>(base + 16);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], af[mi], bf[ni]);
-    }
+    mma_slab(acc, sA, sB, wm, wn, g, t);
     __syncthreads();
   }
 

@@ -22,7 +22,8 @@ import subprocess
 import time
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("cim_matmul", "paged_attention", "flash_prefill")
+SOURCES = ("cim_matmul", "paged_attention", "flash_prefill",
+           "bitplane_matmul", "caat_mac")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -6,8 +6,10 @@ in the kernel prologue), bias and the optional int8 requant epilogue, then
 runs :func:`cim_matmul_kernel` (the CUDA kernel ``csrc/cim_matmul.cu``) on
 a CUDA tensor or :func:`cim_matmul_plain` (the same function in plain
 PyTorch) on a CPU tensor.  A CUDA tensor never takes the plain path: the
-kernel launches or the wrapper raises.  The kernel masks ragged M/N/K
-edges itself, so nothing is padded here.
+kernel launches or the wrapper raises.  Every shape is taken: the kernel
+masks ragged M/N/K edges itself, at byte granularity where K or N is not
+a multiple of 4 (VGG-8's conv1 has K = 27, its head N = 10), so nothing
+is padded here.
 """
 from __future__ import annotations
 
@@ -71,8 +73,6 @@ def cim_matmul_kernel(a, w_q, a_scale, w_scale, bias, out_scale, *,
         raise ValueError(f"cim_matmul_kernel needs CUDA tensors, got {dev}")
     if k != k2:
         raise ValueError(f"inner dims differ: {a.shape} x {w_q.shape}")
-    if k % 4 or n % 4:
-        raise ValueError(f"K ({k}) and N ({n}) must be multiples of 4")
     if a.dtype not in (torch.int8, torch.float32) or w_q.dtype != torch.int8:
         raise TypeError(f"a must be int8 or f32 and w_q int8, got "
                         f"{a.dtype}, {w_q.dtype}")

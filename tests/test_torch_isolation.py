@@ -54,7 +54,8 @@ def test_no_source_names_the_jax_package():
         assert "repro." not in text.replace("repro_torch.", ""), path
 
 
-@pytest.mark.parametrize("entry", ["init", "pages", "engine", "launch"])
+@pytest.mark.parametrize("entry", ["init", "pages", "engine", "launch",
+                                   "fig10"])
 def test_entry_points_default_to_cuda(entry):
     """Without device='cpu' an entry point raises on a machine without
     CUDA (on a machine with a card there is nothing to check here)."""
@@ -70,6 +71,9 @@ def test_entry_points_default_to_cuda(entry):
             M.init(cfg, torch.Generator().manual_seed(0))
         elif entry == "pages":
             kv_pool.init_pages(cfg, 8, 4)
+        elif entry == "fig10":
+            from repro_torch.launch import fig10
+            fig10.main(["--plan", "w8a8_kernel"])
         elif entry == "engine":
             params = M.init(cfg, torch.Generator().manual_seed(0),
                             device="cpu")
@@ -107,6 +111,18 @@ def test_wrappers_never_fall_back_off_cpu():
                                 torch.empty(2, 4, 2, 32, device=meta),
                                 torch.empty(2, 4, 2, 32, device=meta),
                                 pages, pages, tables, lens, lens)
+    from repro_torch.core import macro
+    from repro_torch.kernels.bitserial_matmul import ops as bs_ops
+    from repro_torch.kernels.caat_mac import ops as caat_ops
+    a8 = torch.empty(2, 27, dtype=torch.int8, device=meta)
+    w8 = torch.empty(27, 10, dtype=torch.int8, device=meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        bs_ops.bitserial_matmul(a8, w8, torch.tensor(0.1, device=meta),
+                                torch.ones(10, device=meta))
+    cfg = macro.MacroConfig(rows=32)
+    with pytest.raises(ValueError, match="CUDA"):
+        caat_ops.cim_macro_matmul(a8, w8, macro.ideal_chip(cfg, meta), 1e4,
+                                  cfg)
 
 
 def test_bf16_crosses_bit_exact():

@@ -11,6 +11,9 @@ imports JAX, is skipped):
 import pytest
 import torch
 
+from repro_torch.core import adc, macro
+from repro_torch.kernels.bitserial_matmul import ops as bs_ops
+from repro_torch.kernels.caat_mac import ops as caat_ops
 from repro_torch.kernels.cim_matmul import ops as cim_ops
 from repro_torch.kernels.paged_attention import ops as tops
 
@@ -25,7 +28,8 @@ def hopper():
 @pytest.mark.gpu
 def test_cim_matmul_kernel_bit_exact(hopper):
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for m, k, n in ((1, 64, 64), (9, 100, 36), (130, 4096, 260)):
+    for m, k, n in ((1, 64, 64), (9, 100, 36), (130, 4096, 260),
+                    (70, 27, 128), (5, 1024, 10), (3, 13, 7)):
         w = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
                           dtype=torch.int32).to(torch.int8)
         ws = torch.rand(n, generator=gen, device="cuda") * 1e-2
@@ -104,3 +108,57 @@ def test_prefill_kernel_matches_plain(hopper, int8):
     for a, b_ in zip(p1, p2):
         if a is not None:
             assert torch.equal(a[1:], b_[1:])
+
+
+def _i8(gen, shape, lo=-128):
+    return torch.randint(lo, 128, shape, generator=gen, device="cuda",
+                         dtype=torch.int32).to(torch.int8)
+
+
+@pytest.mark.gpu
+def test_bitplane_kernel_bit_exact(hopper):
+    """K4 per plane at ragged shapes (conv1's K = 27, the head's N = 10),
+    and the 8-pass wrapper against the same shift-add over plain planes."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for m, k, n in ((70, 27, 128), (33, 1152, 10), (5, 200, 70)):
+        a, w = _i8(gen, (m, k)), _i8(gen, (k, n), -127)
+        for plane in range(8):
+            assert torch.equal(bs_ops.bitplane_matmul_kernel(a, w, plane),
+                               bs_ops.bitplane_matmul_plain(a, w, plane))
+        ws = torch.rand(n, generator=gen, device="cuda")
+        bias = torch.randn(n, generator=gen, device="cuda")
+        a_s = torch.tensor(0.1, device="cuda")
+        got = bs_ops.bitserial_matmul(a, w, a_s, ws, bias, relu=True)
+        planes = [bs_ops.bitplane_matmul_plain(a, w, p).float()
+                  for p in range(8)]
+        acc = torch.zeros_like(planes[0])
+        for p, psum in enumerate(planes):
+            acc = acc + (-(2.0 ** 7) if p == 7 else 2.0 ** p) * psum
+        want = torch.clamp_min(acc * (a_s * ws) + bias, 0.0)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("relu", [False, True])
+def test_caat_mac_kernel_matches_plain_and_sim(hopper, relu, monkeypatch):
+    """K5 through cim_macro_matmul: equal to its plain version (both sum
+    in float64), and to the behavioural simulation with an ideal ADC
+    within the code tolerance."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cfg = macro.nominal_config(rows=128)
+    chip = macro.sample_chip(gen, cfg)
+    for b, k, n in ((40, 27, 128), (65, 300, 70), (3, 128, 10)):
+        a, w = _i8(gen, (b, k)), _i8(gen, (k, n), -127)
+        v_fs = torch.tensor(0.05 * 128 * 127 * 127, device="cuda")
+        got = caat_ops.cim_macro_matmul(a, w, chip, v_fs, cfg, relu=relu)
+        with monkeypatch.context() as mp:
+            mp.setattr(caat_ops, "caat_mac_kernel", caat_ops.caat_mac_plain)
+            want = caat_ops.cim_macro_matmul(a, w, chip, v_fs, cfg, relu=relu)
+        assert torch.equal(got, want)
+        sim, _ = macro.cim_matmul_sim(
+            a, w, {"caat": chip["caat"], "adc": adc.ideal_adc(cfg.adc,
+                                                              "cuda")},
+            v_fs, cfg, relu=relu)
+        d = (got - sim.to(torch.int32)).abs()
+        assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-3
