@@ -10,17 +10,22 @@ Phases (each prints one JSON line; any failure exits non-zero):
 2. build    -- compiles the five CUDA kernels from src/repro_torch/csrc,
                one nvcc per source, all started together.
 3. kernels  -- holds each kernel against its plain PyTorch version on the
-               card at its path's shapes (K1 also at VGG-8's ragged K = 27
-               and N = 10, K4 at all 8 VGG-8 layer shapes and planes, K5 at
-               conv2/conv6/fc1 with a sampled chip) and times kernel,
+               card at its path's shapes (K2 at one split and at the
+               card's split count, then the decode merge; K1 also at
+               VGG-8's ragged K = 27 and N = 10, K4 at all 8 VGG-8 layer
+               shapes and planes, K5 at conv2/conv6/fc1 with a sampled
+               chip) and times kernel,
                plain version, one PyTorch library call (the yardstick) and
                the bound (bytes / 3.35 TB/s or operations / the peak rate
                for the operand type, the larger).
 4. main     -- serves 8 requests through the port's ContinuousEngine at
                qwen3-8b's widths (w8a8_kernel plan, paged attention,
                chunked prefill, int8 KV pool, random weights from a seed),
-               checks every request is OK and every kernel launched, and
-               replays the requests through the plain versions.
+               checks every request is OK and every kernel launched,
+               serves them once more with CUDA events around each kernel
+               wrapper and the decode merge (device time by kernel, its
+               own line), and replays the requests through the plain
+               versions.
 5. vgg8     -- the paper's VGG-8 deployment path (repro_torch.launch.fig10)
                at its published widths with random weights from a seed:
                w8a8_kernel (with and without residency) and
@@ -77,6 +82,54 @@ def swapped(module, name: str, replacement):
         setattr(module, name, saved)
 
 
+@contextlib.contextmanager
+def event_timed(torch, targets):
+    """Wrap each ``(module, name)`` function so that every call is
+    bracketed by CUDA events on the current stream; yields ``{name: [(start,
+    end), ...]}`` (read the times after a synchronize)."""
+    events = {name: [] for _, name in targets}
+    with contextlib.ExitStack() as stack:
+        for module, name in targets:
+            def timed(*a, _fn=getattr(module, name), _ev=events[name], **k):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = _fn(*a, **k)
+                end.record()
+                _ev.append((start, end))
+                return out
+            stack.enter_context(swapped(module, name, timed))
+        yield events
+
+
+# Device kernels of the port by name, for the profiler's sums.
+KERNEL_NAMES = (("cim_matmul", "cim_matmul_kernel"),
+                ("paged_attention", "paged_decode_kernel"),
+                ("merge_splits", "merge_splits_kernel"),
+                ("flash_prefill", "prefill_"))
+
+
+def device_time_by_kernel(prof, wall_s: float) -> dict:
+    """Sum the profiler's device time by the port's kernels and the rest
+    (PyTorch's own kernels, copies, fills); the busy share is all device
+    time over the wall.  Empty when the trace holds no device time."""
+    sums: dict = {}
+    for ev in prof.key_averages():
+        us = ev.self_device_time_total
+        if not us:
+            continue
+        name = next((k for k, pat in KERNEL_NAMES if pat in ev.key),
+                    "other")
+        entry = sums.setdefault(name, {"ms": 0.0, "calls": 0})
+        entry["ms"] += us / 1e3
+        entry["calls"] += ev.count
+    busy = sum(e["ms"] for e in sums.values())
+    for e in sums.values():
+        e["share_of_wall"] = e["ms"] / (wall_s * 1e3)
+    return {"by_kernel": sums, "device_busy_ms": busy,
+            "device_busy_share": busy / (wall_s * 1e3)} if sums else {}
+
+
 def rand_i8(torch, shape, gen, lo=-128, hi=128):
     return torch.randint(lo, hi, shape, generator=gen, device="cuda",
                          dtype=torch.int32).to(torch.int8)
@@ -98,7 +151,12 @@ def bound_ms(n_bytes: float, n_ops: float, peak_ops: float):
 
 class Timer:
     """Per-launch CUDA-event timing with the L2 cache flushed before each
-    launch (the main path reads each layer's weights and pages cold)."""
+    launch (the main path reads each layer's weights and pages cold).  A
+    device-side sleep after the flush keeps the card busy while the host
+    enqueues the call, so the events time the device's work, not the
+    wrapper's Python overhead on an idle card."""
+
+    HIDE_CYCLES = 1_000_000     # ~0.5 ms of device sleep
 
     def __init__(self, torch):
         self.torch = torch
@@ -112,6 +170,7 @@ class Timer:
         total = 0.0
         for _ in range(iters):
             self.flush.zero_()
+            torch.cuda._sleep(self.HIDE_CYCLES)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -236,11 +295,16 @@ def _dense_kv(torch, pages, scale, tables, n_tokens):
 
 def check_k2(torch, timer, ops, gen):
     """paged_attention against its plain version, bf16 and int8 pools,
-    B=8 ragged lengths up to 2048 with one empty row."""
+    B=8 ragged lengths up to 2048 with one empty row, at kv_splits=1 (the
+    count the decode kernel was first timed at) and at the card's split
+    count (what the main path runs)."""
+    from repro_torch.kernels import autotune
     b, kvh, g, d, bs = 8, 8, 4, 128, 16
     lengths = torch.tensor([2048, 1, 777, 0, 1500, 64, 1999, 300],
                            dtype=torch.int32, device="cuda")
     w = 2048 // bs
+    card_splits = autotune.heuristic_paged_splits_cuda(
+        b, kvh, w, ops.sm_count("cuda"))
     nb = b * w + 1
     perm = torch.randperm(nb - 1, generator=gen, device="cuda") + 1
     tables = perm[:b * w].reshape(b, w).to(torch.int32).contiguous()
@@ -251,23 +315,24 @@ def check_k2(torch, timer, ops, gen):
     for int8 in (False, True):
         (kp, vp), (ks, vs) = _pool(torch, gen, nb, bs, kvh, d, int8)
         args = (q, kp, vp, ks, vs, tables, lengths)
-        splits = 1
-        got = ops.merge_splits(*ops.paged_attention_kernel(
-            *args, kv_splits=splits))
-        want = ops.merge_splits(*ops.paged_attention_plain(
-            *args, kv_splits=splits))
-        e = (got - want).abs().max().item()
-        # f32 sums in another order than the plain version's einsum.
-        if not e <= 1e-3:
-            raise AssertionError(f"K2 int8={int8}: max abs err {e} > 1e-3")
-        if got[3].abs().max().item() != 0.0:
-            raise AssertionError("K2: the n_valid=0 row is not zeros")
-        err = max(err, e)
-        if int8:
-            ms = timer.ms(lambda: ops.paged_attention_kernel(
+        for splits in (1, card_splits):
+            got = ops.merge_splits(*ops.paged_attention_kernel(
                 *args, kv_splits=splits))
+            want = ops.merge_splits(*ops.paged_attention_plain(
+                *args, kv_splits=splits))
+            e = (got - want).abs().max().item()
+            # f32 sums in another order than the plain version's einsum.
+            if not e <= 1e-3:
+                raise AssertionError(f"K2 int8={int8} splits={splits}: max "
+                                     f"abs err {e} > 1e-3")
+            if got[3].abs().max().item() != 0.0:
+                raise AssertionError("K2: the n_valid=0 row is not zeros")
+            err = max(err, e)
+        if int8:
+            ms = {s_: timer.ms(lambda: ops.paged_attention_kernel(
+                *args, kv_splits=s_)) for s_ in (1, card_splits)}
             plain_ms = timer.ms(lambda: ops.paged_attention_plain(
-                *args, kv_splits=splits), iters=5)
+                *args, kv_splits=card_splits), iters=5)
             # Yardstick: SDPA over the gathered, dequantized live pages.
             kd = _dense_kv(torch, kp, ks, tables, 2048)
             vd = _dense_kv(torch, vp, vs, tables, 2048)
@@ -290,12 +355,52 @@ def check_k2(torch, timer, ops, gen):
                          "src/repro/kernels/paged_attention/kernel.py:217",
                      "shape": f"B={b} KVH={kvh} G={g} D={d} BS={bs} "
                               f"int8 pool, {tokens} live tokens",
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "kv_splits": card_splits,
+                     "ms": ms[card_splits], "ms_splits1": ms[1],
+                     "plain_ms": plain_ms, "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": library_ms,
                      "library": "scaled_dot_product_attention over the "
                                 "gathered dequantized pages"}
     entry["max_abs_err"] = err
     return entry
+
+
+def check_merge(torch, timer, ops, gen):
+    """merge_splits_kernel against merge_splits on the partials of the K2
+    timing shape at the card's split count, a dead split and an empty row
+    included."""
+    from repro_torch.kernels import autotune
+    b, kvh, g, d = 8, 8, 4, 128
+    ns = autotune.heuristic_paged_splits_cuda(b, kvh, 2048 // 16,
+                                              ops.sm_count("cuda"))
+    acc = torch.randn(b, kvh, ns, g, d, generator=gen, device="cuda")
+    m = torch.randn(b, kvh, ns, g, 1, generator=gen, device="cuda") * 4
+    l = torch.rand(b, kvh, ns, g, 1, generator=gen, device="cuda") + 0.5
+    for t, v in ((acc, 0.0), (m, ops.NEG_INF), (l, 0.0)):
+        t[0, 0, 1] = v          # a dead split
+        t[3] = v                # a row with no live position
+    got = ops.merge_splits_kernel(acc, m, l)
+    want = ops.merge_splits(acc, m, l)
+    err = (got - want).abs().max().item()
+    # expf against torch.exp and another summation order over the splits.
+    if not err <= 1e-5:
+        raise AssertionError(f"merge: max abs err {err} > 1e-5")
+    if got[3].abs().max().item() != 0.0:
+        raise AssertionError("merge: the empty row is not zeros")
+    ms = timer.ms(lambda: ops.merge_splits_kernel(acc, m, l))
+    plain_ms = timer.ms(lambda: ops.merge_splits(acc, m, l))
+    n_bytes = (acc.numel() + m.numel() + l.numel() + b * kvh * g * d) * 4
+    b_ms, b_by = bound_ms(n_bytes, 3.0 * acc.numel(), PEAK_F32_OPS)
+    return {"name": "merge_splits", "route": "cuda",
+            "source": "src/repro_torch/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/paged_attention/ops.py:44 "
+                        "(merge_splits, the jnp combine of the Pallas "
+                        "decode kernel's partials)",
+            "max_abs_err": err,
+            "shape": f"B={b} KVH={kvh} S={ns} G={g} D={d}",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None,
+            "library": "none: no single PyTorch call combines the splits"}
 
 
 def check_k3(torch, timer, ops, gen):
@@ -313,7 +418,7 @@ def check_k3(torch, timer, ops, gen):
     k32 = torch.randn(b, c, kvh, d, generator=gen, device="cuda")
     v32 = torch.randn(b, c, kvh, d, generator=gen, device="cuda")
     masked_blocks = tables[3, 64 // bs:(64 + c) // bs].long()
-    err = 0.0
+    err = err_bf16 = tol_used = 0.0
     entry = None
     for dtype, int8 in ((torch.float32, False), (torch.float32, True),
                         (torch.bfloat16, False), (torch.bfloat16, True)):
@@ -337,8 +442,11 @@ def check_k3(torch, timer, ops, gen):
         if not bool((diff <= tol).all()):
             raise AssertionError(
                 f"K3 {dtype} int8={int8}: max abs err {diff.max().item()}")
-        if dtype == torch.float32:
+        if dtype == torch.float32:      # the CUDA-core instantiation
             err = max(err, diff.max().item())
+        else:                           # the tensor-core instantiation
+            err_bf16 = max(err_bf16, diff.max().item())
+            tol_used = max(tol_used, (diff / tol).max().item())
         for a_, b_, orig in ((k1, k2, kp), (v1, v2, vp), (ks1, ks2, ks),
                              (vs1, vs2, vs)):
             if a_ is None:
@@ -395,6 +503,8 @@ def check_k3(torch, timer, ops, gen):
                      "library": "scaled_dot_product_attention per row over "
                                 "the gathered past pages + chunk"}
     entry["max_abs_err"] = err
+    entry["max_abs_err_bf16"] = err_bf16
+    entry["bf16_tolerance_used"] = tol_used
     return entry
 
 
@@ -538,11 +648,13 @@ def check_k5(torch, timer, ops, gen):
 
 @contextlib.contextmanager
 def plain_versions(cim_ops, paged_ops):
-    """Route the three kernel wrappers to their plain twins (the replay;
+    """Route the kernel wrappers to their plain twins (the replay;
     these calls are not counted as launches)."""
     with swapped(cim_ops, "cim_matmul_kernel", cim_ops.cim_matmul_plain), \
             swapped(paged_ops, "paged_attention_kernel",
                     paged_ops.paged_attention_plain), \
+            swapped(paged_ops, "merge_splits_kernel",
+                    paged_ops.merge_splits), \
             swapped(paged_ops, "flash_prefill_kernel",
                     paged_ops.flash_prefill_plain):
         yield
@@ -584,6 +696,7 @@ def main_path(torch, cfg, cim_ops, paged_ops, *, device="cuda",
     cim_ops.launches = 0
     paged_ops.decode_launches = 0
     paged_ops.prefill_launches = 0
+    paged_ops.merge_launches = 0
     sync()
     t0 = time.perf_counter()
     res = ce.run(reqs)
@@ -591,7 +704,8 @@ def main_path(torch, cfg, cim_ops, paged_ops, *, device="cuda",
     wall = time.perf_counter() - t0
     launches = {"cim_matmul": cim_ops.launches,
                 "paged_attention": paged_ops.decode_launches,
-                "flash_prefill": paged_ops.prefill_launches}
+                "flash_prefill": paged_ops.prefill_launches,
+                "merge_splits": paged_ops.merge_launches}
     n_tok = sum(len(r.tokens) for r in res.values())
     bad = [rid for rid, r in res.items() if r.status is not RequestStatus.OK]
     if len(res) != len(reqs) or bad:
@@ -600,6 +714,37 @@ def main_path(torch, cfg, cim_ops, paged_ops, *, device="cuda",
         if n <= 0 and device == "cuda":
             raise AssertionError(f"{name} never launched on the main path")
     ce.allocator.check_invariants()
+
+    # Device time by kernel: the same requests once more, each kernel
+    # wrapper (and the partials' merge) bracketed by CUDA events.  Not the
+    # timed run: the events add host work.
+    kernel_time = None
+    if device == "cuda":
+        # An event pair spans the wrapper's host work too when the card
+        # waits for the host, so the same run is also traced with
+        # torch.profiler for the kernels' own device time.
+        from torch.profiler import ProfilerActivity, profile
+        ce_ev = ContinuousEngine(params, cfg, **kw)
+        wrappers = ((cim_ops, "cim_matmul_kernel"),
+                    (paged_ops, "paged_attention_kernel"),
+                    (paged_ops, "flash_prefill_kernel"),
+                    (paged_ops, "merge_splits_kernel"))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof, \
+                event_timed(torch, wrappers) as events:
+            sync()
+            t0 = time.perf_counter()
+            ce_ev.run(reqs)
+            sync()
+            ev_wall = time.perf_counter() - t0
+        kernel_time = {"phase": "main_kernel_time", "wall_s": ev_wall,
+                       "timed_run_wall_s": wall, "events": {},
+                       "profiler": device_time_by_kernel(prof, ev_wall)}
+        for name, pairs in events.items():
+            ms = sum(a.elapsed_time(b) for a, b in pairs)
+            kernel_time["events"][name] = {
+                "calls": len(pairs), "ms": ms,
+                "share_of_wall": ms / (ev_wall * 1e3)}
+        emit(kernel_time)
 
     # Replay through the plain versions on the card.
     ce_plain = ContinuousEngine(params, cfg, **kw)
@@ -672,6 +817,7 @@ def main_path(torch, cfg, cim_ops, paged_ops, *, device="cuda",
               "segments": ce.last_run_segments,
               "prefill_chunks": ce.last_run_prefill_chunks,
               "launches": launches,
+              "kernel_device_time": kernel_time,
               "first_tokens_identical": sum(
                   int(res[i].tokens[0] == res_plain[i].tokens[0])
                   for i in res),
@@ -896,8 +1042,8 @@ def main() -> int:
     timer = Timer(torch)
     kernels = []
     for check, ops in ((check_k1, cim_ops), (check_k2, paged_ops),
-                       (check_k3, paged_ops), (check_k4, bs_ops),
-                       (check_k5, caat_ops)):
+                       (check_merge, paged_ops), (check_k3, paged_ops),
+                       (check_k4, bs_ops), (check_k5, caat_ops)):
         t = time.perf_counter()
         entry = check(torch, timer, ops, gen)
         entry["check_s"] = time.perf_counter() - t

@@ -38,6 +38,67 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// Four int8 codes packed in a word -> their exact f32 values without the
+// slow integer-to-float conversion unit: the code plus 128 becomes the low
+// mantissa byte of 2**23, and subtracting 2**23 + 128 leaves the code.
+__device__ __forceinline__ void i8x4_to_f32(uint32_t w, float* f) {
+  const uint32_t u = w ^ 0x80808080u;
+  f[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - 8388736.f;
+  f[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - 8388736.f;
+  f[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - 8388736.f;
+  f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - 8388736.f;
+}
+
+// ---- asynchronous global -> shared copies (sm_80+ cp.async) -------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes, bypassing L1; `valid` false fills the 16 bytes with zeros and
+// reads nothing.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes (zero-filled when not `valid`).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A per-token bf16 scale is 2 bytes, below cp.async's 4-byte minimum: copy
+// the aligned 4-byte word that holds it (the word never leaves the
+// allocation, which is at least 4-byte aligned) and pick the half later
+// with scale_from_word.
+__device__ __forceinline__ const void* scale_word(const __nv_bfloat16* p) {
+  return reinterpret_cast<const void*>(reinterpret_cast<uintptr_t>(p) &
+                                       ~(uintptr_t)3);
+}
+
+__device__ __forceinline__ float scale_from_word(uint32_t word,
+                                                 const __nv_bfloat16* p) {
+  const uint32_t hi = (reinterpret_cast<uintptr_t>(p) >> 1) & 1;
+  return __uint_as_float(hi ? (word & 0xffff0000u) : (word << 16));
+}
+
 // Dynamic shared memory above the 48 KB default needs an opt-in per kernel.
 template <typename K>
 inline cudaError_t allow_smem(K kernel, size_t bytes) {

@@ -30,6 +30,20 @@ def heuristic_paged_splits(batch: int, kvh: int, width: int,
     return min(width, next_pow2(want))
 
 
+def heuristic_paged_splits_cuda(batch: int, kvh: int, width: int,
+                                sm_count: int) -> int:
+    """Split count for the CUDA decode kernel: the smallest power of two
+    that gives (batch x kv_heads x splits) >= 2 blocks per SM, halved
+    while a split would own no page of the table (splits take
+    ceil(width / splits) pages each).  The serve loop passes pow2-bucketed
+    live widths, where the cap is the width itself."""
+    par = max(1, batch * kvh)
+    s = next_pow2(max(1, -(-2 * sm_count // par)))
+    while s > 1 and (s - 1) * -(-width // s) >= width:
+        s //= 2
+    return s
+
+
 def choose_paged_splits(batch: int, kvh: int, width: int, block_size: int,
                         dtype=None, *, head_dim: int = 0,
                         groups: int = 1) -> int:

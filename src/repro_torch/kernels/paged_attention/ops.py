@@ -7,7 +7,9 @@ Both accept the pool's native pages -- fp tensors ``[NB, BS, KVH, D]`` or
 int8 :class:`~repro_torch.core.quant.QTensor` pages (scale
 ``[NB, BS, KVH, 1]``) -- and run the CUDA kernel (``csrc/paged_attention.cu``,
 ``csrc/flash_prefill.cu``) on CUDA tensors or its plain PyTorch twin on CPU
-tensors.  A CUDA tensor never takes the plain path.
+tensors.  A CUDA tensor never takes the plain path.  The decode
+partials' combine is ``merge_splits`` on the CPU and its one-launch CUDA
+form ``merge_splits_kernel`` on the card.
 
 Unlike the JAX package, the pool is updated in place: ``paged_prefill``
 writes the chunk's K/V into the given pages and returns the same page
@@ -28,9 +30,10 @@ from repro_torch.kernels import autotune, build
 
 NEG_INF = -1e30
 
-# Launch counts of the two CUDA kernels (plain integers).
+# Launch counts of the CUDA kernels (plain integers).
 decode_launches = 0
 prefill_launches = 0
+merge_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -128,6 +131,20 @@ def _check_index(t, shape, dev, name):
                          f"on {t.device}")
 
 
+def _check_aligned(*tensors):
+    """The kernels stage rows with 16-byte cp.async copies."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError("the kernels' tensors must start on a "
+                             "16-byte boundary")
+
+
+def _aligned(t):
+    """``t`` contiguous and on a 16-byte boundary (copied if it is not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -141,6 +158,41 @@ def _decode_fn():
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _merge_fn():
+    fn = build.library("paged_attention").merge_splits_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def merge_splits_kernel(acc, m, l):
+    """:func:`merge_splits` as one CUDA launch (same arguments and
+    result)."""
+    global merge_launches
+    dev = acc.device
+    if dev.type != "cuda":
+        raise ValueError(f"merge_splits_kernel needs CUDA tensors, got "
+                         f"{dev}")
+    b, kvh, ns, g, d = acc.shape
+    for t, shape in ((acc, (b, kvh, ns, g, d)), (m, (b, kvh, ns, g, 1)),
+                     (l, (b, kvh, ns, g, 1))):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape \
+                or t.device != dev or not t.is_contiguous():
+            raise ValueError("partials must be contiguous f32 acc [B, KVH, "
+                             "S, G, D] and m, l [B, KVH, S, G, 1]")
+    out = torch.empty((b, kvh, g, d), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    rc = _merge_fn()(acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+                     out.data_ptr(), b * kvh, ns, g, d,
+                     torch.cuda.current_stream(dev).cuda_stream)
+    build.check(rc, "merge_splits")
+    merge_launches += 1
+    return out
 
 
 def paged_attention_kernel(q, k_pages, v_pages, k_scale, v_scale,
@@ -161,9 +213,9 @@ def paged_attention_kernel(q, k_pages, v_pages, k_scale, v_scale,
     nb, bs, kvh2, d2 = k_pages.shape
     if (kvh2, d2) != (kvh, d):
         raise ValueError(f"q heads/dim {(kvh, d)} != pages {(kvh2, d2)}")
-    if d % 32 or d > 256 or g * 32 > 1024:
-        raise ValueError(f"kernel takes D in {{32..256}} step 32 and "
-                         f"G <= 32, got D={d}, G={g}")
+    if d not in (32, 64, 128, 256):
+        raise ValueError(f"kernel takes D in {{32, 64, 128, 256}}, got {d}")
+    _check_aligned(k_pages, v_pages)
     w = block_tables.shape[1]
     _check_index(block_tables, (b, w), dev, "block_tables")
     _check_index(n_valid, (b,), dev, "n_valid")
@@ -184,12 +236,26 @@ def paged_attention_kernel(q, k_pages, v_pages, k_scale, v_scale,
     return acc, m, l
 
 
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(dev) -> int:
+    """Streaming multiprocessors of the CUDA device ``dev``."""
+    dev = torch.device(dev)
+    return _sm_count(torch.cuda.current_device() if dev.index is None
+                     else dev.index)
+
+
 def paged_attention(q, k_pages, v_pages, block_tables, n_valid, *,
                     kv_splits: int | None = None):
     """Fused paged decode attention: q [B, 1, H, D] -> [B, 1, H, D].
 
-    ``kv_splits`` defaults to the heuristic for this shape.  ``n_valid`` is
-    effectively clamped to the table capacity ``W * BS``."""
+    ``kv_splits`` defaults to the heuristic for this shape: on CUDA the
+    card's (enough splits to give every SM two blocks), on the CPU the JAX
+    package's.  ``n_valid`` is effectively clamped to the table capacity
+    ``W * BS``."""
     b, sq, h, d = q.shape
     if sq != 1:
         raise ValueError("paged flash decoding serves single-token queries")
@@ -198,18 +264,22 @@ def paged_attention(q, k_pages, v_pages, block_tables, n_valid, *,
     bs, kvh = k_q.shape[1], k_q.shape[2]
     g = h // kvh
     width = block_tables.shape[1]
-    if kv_splits is None:
+    if kv_splits is None and q.device.type == "cuda":
+        kv_splits = autotune.heuristic_paged_splits_cuda(
+            b, kvh, width, sm_count(q.device))
+    elif kv_splits is None:
         kv_splits = autotune.choose_paged_splits(
             b, kvh, width, bs, k_q.dtype, head_dim=d, groups=g)
     qr = q.reshape(b, kvh, g, d)
     args = (k_q, v_q, k_s, v_s, block_tables.to(torch.int32),
             n_valid.to(torch.int32))
     if q.device.type == "cpu":
-        acc, m, l = paged_attention_plain(qr, *args, kv_splits=kv_splits)
+        out = merge_splits(*paged_attention_plain(qr, *args,
+                                                  kv_splits=kv_splits))
     else:
-        acc, m, l = paged_attention_kernel(qr.contiguous(), *args,
-                                           kv_splits=kv_splits)
-    return merge_splits(acc, m, l).reshape(b, 1, h, d).to(q.dtype)
+        out = merge_splits_kernel(*paged_attention_kernel(
+            qr.contiguous(), *args, kv_splits=kv_splits))
+    return out.reshape(b, 1, h, d).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -351,9 +421,7 @@ def flash_prefill_kernel(q, k_new, v_new, k_pages, v_pages, k_scale,
     if cg != c * g or c % bs or d % 32 or d > 256:
         raise ValueError(f"kernel takes C a block_size multiple and D in "
                          f"{{32..256}} step 32 (C={c}, BS={bs}, D={d})")
-    if -(-cg // 16) < c // bs:
-        raise ValueError("kernel needs ceil(C*G/16) >= C/BS query tiles "
-                         "(one writer block per chunk page)")
+    _check_aligned(q, k_new, v_new, k_pages, v_pages)
     w = block_tables.shape[1]
     _check_index(block_tables, (b, w), dev, "block_tables")
     for t, name in ((pos, "pos"), (n_tok, "n_tok"),
@@ -401,7 +469,7 @@ def paged_prefill(q, k_new, v_new, k_pages, v_pages, block_tables, pos,
                                   pos, n_tok, wm, has_past=has_past)
     else:
         out = flash_prefill_kernel(
-            qr.contiguous(), k_new.contiguous(), v_new.contiguous(), k_q,
-            v_q, k_s, v_s, bt, pos, n_tok, wm)
+            _aligned(qr), _aligned(k_new), _aligned(v_new), k_q, v_q, k_s,
+            v_s, bt, pos, n_tok, wm)
     out = out.reshape(b, kvh, c, g, d).transpose(1, 2).reshape(b, c, h, d)
     return out.to(q.dtype), k_pages, v_pages

@@ -43,71 +43,120 @@ def test_cim_matmul_kernel_bit_exact(hopper):
                 cim_ops.cim_matmul_plain(*args, requant=requant))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("int8", [False, True])
-def test_decode_kernel_matches_plain(hopper, int8):
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    b, kvh, g, d, bs, w = 4, 2, 4, 128, 16, 8
-    nb = b * w + 1
-    tables = (torch.randperm(nb - 1, generator=gen, device="cuda")[:b * w]
-              + 1).reshape(b, w).to(torch.int32)
-    n_valid = torch.tensor([0, 5, 100, 128], dtype=torch.int32,
-                           device="cuda")
-    q = torch.randn(b, kvh, g, d, generator=gen, device="cuda")
-    shape = (nb, bs, kvh, d)
-    if int8:
+def _pages(gen, shape, kind):
+    """Two random pools of ``kind`` ("f32", "bf16" or "int8"): (k, v, k_scale,
+    v_scale), the scales None for fp pools."""
+    if kind == "int8":
         kp, vp = (torch.randint(-127, 128, shape, generator=gen,
                                 device="cuda", dtype=torch.int32).to(
                                     torch.int8) for _ in range(2))
         ks, vs = ((torch.rand(shape[:3], generator=gen, device="cuda")
                    * 0.05).to(torch.bfloat16) for _ in range(2))
-    else:
-        kp, vp = (torch.randn(shape, generator=gen, device="cuda")
-                  for _ in range(2))
-        ks = vs = None
-    for splits in (1, 3):
+        return [kp, vp, ks, vs]
+    dtype = torch.float32 if kind == "f32" else torch.bfloat16
+    return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            for _ in range(2)] + [None, None]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("bs", [16, 32])
+def test_decode_kernel_matches_plain(hopper, kind, g, d, bs):
+    """K2 at split counts 1, 3, the card's heuristic and the table width,
+    one row with n_valid = 0 (zeros), within 1e-4 of its plain twin."""
+    from repro_torch.kernels import autotune
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    b, kvh, w = 4, 2, 8
+    nb = b * w + 1
+    tables = (torch.randperm(nb - 1, generator=gen, device="cuda")[:b * w]
+              + 1).reshape(b, w).to(torch.int32)
+    n_valid = torch.tensor([0, 5, 3 * bs + 7, w * bs], dtype=torch.int32,
+                           device="cuda")
+    q = torch.randn(b, kvh, g, d, generator=gen, device="cuda")
+    kp, vp, ks, vs = _pages(gen, (nb, bs, kvh, d), kind)
+    card = autotune.heuristic_paged_splits_cuda(b, kvh, w,
+                                                tops.sm_count("cuda"))
+    for splits in (1, 3, card, w):
         args = (q, kp, vp, ks, vs, tables, n_valid)
         got = tops.merge_splits(*tops.paged_attention_kernel(
             *args, kv_splits=splits))
         want = tops.merge_splits(*tops.paged_attention_plain(
             *args, kv_splits=splits))
-        assert (got - want).abs().max().item() <= 1e-4
+        assert (got - want).abs().max().item() <= 1e-4, splits
+        assert not got[0].any(), "the n_valid = 0 row must be zeros"
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("ns", [1, 3, 8, 64])
+def test_merge_splits_kernel_matches_plain(hopper, ns):
+    """The one-launch merge against merge_splits, a dead split and an
+    empty row included; and the public decode wrapper, which runs K2 at
+    the card's split count and this merge, against the plain path."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    b, kvh, g, d = 3, 2, 4, 128
+    acc = torch.randn(b, kvh, ns, g, d, generator=gen, device="cuda")
+    m = torch.randn(b, kvh, ns, g, 1, generator=gen, device="cuda") * 4
+    l = torch.rand(b, kvh, ns, g, 1, generator=gen, device="cuda") + 0.5
+    for t, v in ((acc, 0.0), (m, tops.NEG_INF), (l, 0.0)):
+        t[0, 0, ns // 2] = v
+        t[2] = v
+    got = tops.merge_splits_kernel(acc, m, l)
+    assert (got - tops.merge_splits(acc, m, l)).abs().max().item() <= 1e-5
+    assert not got[2].any()
+    w, bs = 8, 16
+    kp, vp, ks, vs = _pages(gen, (b * w + 1, bs, kvh, d), "int8")
+    tables = (torch.arange(b * w, device="cuda", dtype=torch.int32)
+              + 1).reshape(b, w)
+    n_valid = torch.tensor([0, 9, w * bs], dtype=torch.int32, device="cuda")
+    q = torch.randn(b, 1, kvh * g, d, generator=gen, device="cuda")
+    pk, pv = (tops.quant.QTensor(c, s_[..., None]) for c, s_ in
+              ((kp, ks), (vp, vs)))
+    out = tops.paged_attention(q, pk, pv, tables, n_valid)
+    want = tops.merge_splits(*tops.paged_attention_plain(
+        q.reshape(b, kvh, g, d), kp, vp, ks, vs, tables, n_valid,
+        kv_splits=1)).reshape(b, 1, kvh * g, d)
+    assert (out - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("int8", [False, True])
-def test_prefill_kernel_matches_plain(hopper, int8):
+@pytest.mark.parametrize("g,bs", [(4, 16), (1, 8)])
+def test_prefill_kernel_matches_plain(hopper, dtype, int8, g, bs):
+    """K3 at pos 0, 64 and 1024 with a ragged n_tok and a masked row:
+    outputs within 1e-3 (plus one bf16 ulp for bf16 outputs), written
+    pages bit-exact, the masked row's blocks untouched.  bf16 over int8 or
+    bf16 pages is the tensor-core instantiation; G=1 with BS=8 has fewer
+    query tiles than chunk pages."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    b, kvh, g, d, bs, c, w = 3, 2, 4, 128, 16, 64, 12
+    b, kvh, d, c = 4, 2, 128, 64
+    w = (1024 + c) // bs
     nb = b * w + 1
     tables = (torch.randperm(nb - 1, generator=gen, device="cuda")[:b * w]
               + 1).reshape(b, w).to(torch.int32)
-    pos = torch.tensor([0, 64, 128], dtype=torch.int32, device="cuda")
-    n_tok = torch.tensor([64, 20, 64], dtype=torch.int32, device="cuda")
-    wm = torch.tensor([1, 1, 0], dtype=torch.int32, device="cuda")
-    q = torch.randn(b, kvh, c * g, d, generator=gen, device="cuda")
-    k_new = torch.randn(b, c, kvh, d, generator=gen, device="cuda")
-    v_new = torch.randn(b, c, kvh, d, generator=gen, device="cuda")
-    shape = (nb, bs, kvh, d)
-    if int8:
-        pool = [torch.randint(-127, 128, shape, generator=gen,
-                              device="cuda", dtype=torch.int32).to(
-                                  torch.int8) for _ in range(2)]
-        pool += [(torch.rand(shape[:3], generator=gen, device="cuda")
-                  * 0.05).to(torch.bfloat16) for _ in range(2)]
-    else:
-        pool = [torch.randn(shape, generator=gen, device="cuda")
-                for _ in range(2)] + [None, None]
+    pos = torch.tensor([0, 64, 1024, 64], dtype=torch.int32, device="cuda")
+    n_tok = torch.tensor([64, 20, 64, 64], dtype=torch.int32, device="cuda")
+    wm = torch.tensor([1, 1, 1, 0], dtype=torch.int32, device="cuda")
+    q = torch.randn(b, kvh, c * g, d, generator=gen, device="cuda").to(dtype)
+    k_new = torch.randn(b, c, kvh, d, generator=gen, device="cuda").to(dtype)
+    v_new = torch.randn(b, c, kvh, d, generator=gen, device="cuda").to(dtype)
+    kind = "int8" if int8 else ("f32" if dtype == torch.float32 else "bf16")
+    pool = _pages(gen, (nb, bs, kvh, d), kind)
     p1 = [t.clone() if t is not None else None for t in pool]
     p2 = [t.clone() if t is not None else None for t in pool]
     got = tops.flash_prefill_kernel(q, k_new, v_new, *p1, tables, pos, n_tok,
-                                    wm)
+                                    wm).float()
     want = tops.flash_prefill_plain(q, k_new, v_new, *p2, tables, pos,
-                                    n_tok, wm)
-    assert (got - want).abs().max().item() <= 1e-3
-    for a, b_ in zip(p1, p2):
+                                    n_tok, wm).float()
+    tol = 1e-3 + (2.0 ** -7 * want.abs() if dtype == torch.bfloat16 else 0.0)
+    assert bool(((got - want).abs() <= tol).all())
+    masked = tables[3, 64 // bs:(64 + c) // bs].long()
+    for a, b_, orig in zip(p1, p2, pool):
         if a is not None:
             assert torch.equal(a[1:], b_[1:])
+            assert torch.equal(a[masked], orig[masked])
 
 
 def _i8(gen, shape, lo=-128):

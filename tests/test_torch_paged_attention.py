@@ -17,10 +17,12 @@ import pytest
 import torch
 
 from repro.core import quant as jq
+from repro.kernels import autotune as jautotune
 from repro.kernels.paged_attention import ops as jops
 from repro.kernels.paged_attention import ref as jref
 from repro_torch import convert
 from repro_torch.core import quant as tq
+from repro_torch.kernels import autotune as tautotune
 from repro_torch.kernels.paged_attention import ops as tops
 from repro_torch.kernels.paged_attention import ref as tref
 
@@ -32,10 +34,9 @@ def _t(a):
     return convert.tensor_from_numpy(np.asarray(a))
 
 
-def _pool(int8: bool, seed: int):
+def _pool(int8: bool, seed: int, shape=(NB, BS, KVH, D)):
     """Both packages' view of one random pool: (jax pages, torch pages)."""
     rng = np.random.default_rng(seed)
-    shape = (NB, BS, KVH, D)
     if int8:
         out = []
         for _ in range(2):
@@ -93,6 +94,84 @@ def test_decode_plain_matches_jax(int8, kv_splits):
     live = n_valid > 0
     np.testing.assert_allclose(out[live], np.asarray(ref)[live], rtol=1e-5,
                                atol=1e-5)
+
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("width", [4, 16, 128])
+def test_decode_plain_at_card_splits_matches_jax(batch, width):
+    """The split counts the CUDA heuristic picks for the serving shapes
+    (KVH = 8, an H100's 132 SMs) merge to JAX's flash_decode_jnp at those
+    counts, an empty row included."""
+    kvh, g, d, bs = 8, 4, 16, 4
+    splits = tautotune.heuristic_paged_splits_cuda(batch, kvh, width,
+                                                   H100_SMS)
+    rng = np.random.default_rng(width + batch)
+    nb = batch * width + 1
+    tables = (rng.permutation(nb - 1)[:batch * width] + 1).reshape(
+        batch, width).astype(np.int32)
+    n_valid = rng.integers(1, width * bs + 1, batch).astype(np.int32)
+    n_valid[-1] = 0
+    q = rng.standard_normal((batch, kvh, g, d)).astype(np.float32)
+    (jk, tk), (jv, tv) = _pool(True, 11, (nb, bs, kvh, d))
+    want = jops.flash_decode_jnp(
+        jnp.asarray(q), *_split(jk), *_split(jv), jnp.asarray(tables),
+        jnp.asarray(n_valid), kv_splits=splits)
+    tkq, tks = _split(tk)
+    tvq, tvs = _split(tv)
+    got = tops.merge_splits(*tops.paged_attention_plain(
+        _t(q), tkq, tvq, tks, tvs, _t(tables), _t(n_valid),
+        kv_splits=splits))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    assert not got[-1].any(), "the n_valid=0 row must be zeros"
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("kvh", [1, 2, 8])
+def test_cuda_split_heuristic(sms, kvh):
+    """A power of two; every split owns at least one page of the table;
+    at least two blocks per SM unless the width caps it; the smallest such
+    power of two."""
+    for batch in (1, 2, 3, 8, 17, 64, 256):
+        for width in (1, 2, 3, 4, 6, 8, 16, 100, 128, 256, 1024):
+            s = tautotune.heuristic_paged_splits_cuda(batch, kvh, width, sms)
+            assert s >= 1 and s & (s - 1) == 0
+            pps = -(-width // s)
+            assert (s - 1) * pps < width        # no split without a page
+            capped = (2 * s - 1) * -(-width // (2 * s)) >= width
+            assert batch * kvh * s >= 2 * sms or capped
+            assert s == 1 or batch * kvh * (s // 2) < 2 * sms
+
+
+def test_cpu_split_heuristic_is_jax():
+    """On CPU tensors the decode wrapper keeps the JAX package's split
+    heuristic, so CPU parity with JAX is unchanged."""
+    for batch in (1, 2, 3, 8, 64):
+        for kvh in (1, 2, 8):
+            for width in (1, 3, 4, 16, 128):
+                assert (tautotune.heuristic_paged_splits(batch, kvh, width,
+                                                         16)
+                        == jautotune.heuristic_paged_splits(batch, kvh,
+                                                            width, 16))
+    seen = []
+    plain = tops.paged_attention_plain
+
+    def spy(*a, kv_splits):
+        seen.append(kv_splits)
+        return plain(*a, kv_splits=kv_splits)
+
+    (_, tk), (_, tv) = _pool(True, 1)
+    q = np.random.default_rng(0).standard_normal((1, 1, H, D)).astype(
+        np.float32)
+    tables = _tables()[:1]
+    import unittest.mock
+    with unittest.mock.patch.object(tops, "paged_attention_plain", spy):
+        tops.paged_attention(_t(q), tk, tv, _t(tables),
+                             _t(np.array([17], np.int32)))
+    assert seen == [jautotune.heuristic_paged_splits(1, KVH, W, BS)]
 
 
 def test_decode_reference_impls_match_jax():
@@ -177,6 +256,50 @@ def test_prefill_plain_matches_jax(int8, jax_backend):
                 np.asarray(want.scale).view(np.int16))
         else:
             np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("jax_backend", ["emulate", "interpret"])
+def test_prefill_plain_matches_jax_g1_bs8(int8, jax_backend):
+    """G = 1 with 8-token blocks: a chunk of 16 tokens has more pages than
+    16-row query tiles, the shape the CUDA wrapper used to refuse.  The
+    plain twin (the CUDA kernel's oracle on the card) agrees with JAX:
+    attention within 1e-5, pages bit-exact, the masked row's blocks
+    untouched."""
+    b, kvh, g, d, bs, c, w = 3, 2, 1, 16, 8, 16, 4
+    nb = b * w + 1
+    rng = np.random.default_rng(21)
+    q = rng.standard_normal((b, c, kvh * g, d)).astype(np.float32)
+    k_new = rng.standard_normal((b, c, kvh, d)).astype(np.float32)
+    v_new = rng.standard_normal((b, c, kvh, d)).astype(np.float32)
+    tables = np.arange(1, nb, dtype=np.int32).reshape(b, w)
+    pos = np.array([16, 0, 16], np.int32)
+    n_tok = np.array([16, 11, 16], np.int32)
+    wm = np.array([1, 1, 0], np.int32)
+    (jk, tk), (jv, tv) = _pool(int8, 5, (nb, bs, kvh, d))
+    before = [t.q.clone() if int8 else t.clone() for t in (tk, tv)]
+    jout, jk2, jv2 = jops.paged_prefill(
+        jnp.asarray(q), jnp.asarray(k_new), jnp.asarray(v_new), jk, jv,
+        jnp.asarray(tables), jnp.asarray(pos), jnp.asarray(n_tok),
+        jnp.asarray(wm), backend=jax_backend)
+    tout, tk2, tv2 = tops.paged_prefill(
+        _t(q), _t(k_new), _t(v_new), tk, tv, _t(tables), _t(pos),
+        _t(n_tok), _t(wm))
+    on = wm.astype(bool)
+    np.testing.assert_allclose(tout.numpy()[on], np.asarray(jout)[on],
+                               rtol=1e-5, atol=1e-5)
+    for got, want in ((tk2, jk2), (tv2, jv2)):
+        gq = got.q if int8 else got
+        wq = want.q if int8 else want
+        np.testing.assert_array_equal(gq.numpy()[1:], np.asarray(wq)[1:])
+        if int8:
+            np.testing.assert_array_equal(
+                got.scale.view(torch.int16).numpy()[1:],
+                np.asarray(want.scale).view(np.int16)[1:])
+    masked = tables[2, 16 // bs:(16 + c) // bs]
+    for got, old in zip((tk2, tv2), before):
+        cur = got.q if int8 else got
+        assert torch.equal(cur[masked], old[masked])
 
 
 @pytest.mark.parametrize("int8", [False, True])
