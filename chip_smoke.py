@@ -10,22 +10,25 @@ Phases (each prints one JSON line; any failure exits non-zero):
 2. build    -- compiles the five CUDA kernels from src/repro_torch/csrc,
                one nvcc per source, all started together.
 3. kernels  -- holds each kernel against its plain PyTorch version on the
-               card at its path's shapes (K2 at one split and at the
-               card's split count, then the decode merge; K1 also at
-               VGG-8's ragged K = 27 and N = 10, K4 at all 8 VGG-8 layer
-               shapes and planes, K5 at conv2/conv6/fc1 with a sampled
-               chip) and times kernel,
-               plain version, one PyTorch library call (the yardstick) and
-               the bound (bytes / 3.35 TB/s or operations / the peak rate
-               for the operand type, the larger).
+               card at its path's shapes (K1 at every serving (K, N) and
+               M in K1_CASE_MS, and at VGG-8's ragged K = 27 and N = 10;
+               K2 at one split and at the card's split count, then the
+               decode merge; K4 at all 8 VGG-8 layer shapes and planes;
+               K5 at conv2/conv6/fc1 with a sampled chip) and times
+               kernel, plain version, one PyTorch library call (the
+               yardstick) and the bound (bytes / 3.35 TB/s or operations /
+               the peak rate for the operand type, the larger).  K1 is
+               timed at every serving (K, N) at M = 8 and 512 and K4 at
+               every VGG-8 shape, each beside the byte-masked mma.sync
+               kernel (the masked path, the previous design; in turns).
 4. main     -- serves 8 requests through the port's ContinuousEngine at
                qwen3-8b's widths (w8a8_kernel plan, paged attention,
                chunked prefill, int8 KV pool, random weights from a seed),
                checks every request is OK and every kernel launched,
                serves them once more with CUDA events around each kernel
-               wrapper and the decode merge (device time by kernel, its
-               own line), and replays the requests through the plain
-               versions.
+               wrapper and the decode merge (device time by kernel, K1's
+               split into decode and prefill calls, its own line), and
+               replays the requests through the plain versions.
 5. vgg8     -- the paper's VGG-8 deployment path (repro_torch.launch.fig10)
                at its published widths with random weights from a seed:
                w8a8_kernel (with and without residency) and
@@ -46,6 +49,7 @@ import contextlib
 import dataclasses
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -83,10 +87,10 @@ def swapped(module, name: str, replacement):
 
 
 @contextlib.contextmanager
-def event_timed(torch, targets):
+def event_timed(torch, targets, tag=lambda: None):
     """Wrap each ``(module, name)`` function so that every call is
     bracketed by CUDA events on the current stream; yields ``{name: [(start,
-    end), ...]}`` (read the times after a synchronize)."""
+    end, tag()), ...]}`` (read the times after a synchronize)."""
     events = {name: [] for _, name in targets}
     with contextlib.ExitStack() as stack:
         for module, name in targets:
@@ -96,14 +100,16 @@ def event_timed(torch, targets):
                 start.record()
                 out = _fn(*a, **k)
                 end.record()
-                _ev.append((start, end))
+                _ev.append((start, end, tag()))
                 return out
             stack.enter_context(swapped(module, name, timed))
         yield events
 
 
 # Device kernels of the port by name, for the profiler's sums.
-KERNEL_NAMES = (("cim_matmul", "cim_matmul_kernel"),
+KERNEL_NAMES = (("cim_matmul", "cim_wgmma_kernel"),
+                ("cim_matmul", "cim_matmul_kernel"),
+                ("cim_quant_pass", "cim_quant_kernel"),
                 ("paged_attention", "paged_decode_kernel"),
                 ("merge_splits", "merge_splits_kernel"),
                 ("flash_prefill", "prefill_"))
@@ -112,7 +118,9 @@ KERNEL_NAMES = (("cim_matmul", "cim_matmul_kernel"),
 def device_time_by_kernel(prof, wall_s: float) -> dict:
     """Sum the profiler's device time by the port's kernels and the rest
     (PyTorch's own kernels, copies, fills); the busy share is all device
-    time over the wall.  Empty when the trace holds no device time."""
+    time over the wall.  K1's wgmma kernel is also split by its token
+    tile: decode tiles (8 or 16 tokens) and prefill tiles (64 or 128).
+    Empty when the trace holds no device time."""
     sums: dict = {}
     for ev in prof.key_averages():
         us = ev.self_device_time_total
@@ -123,6 +131,14 @@ def device_time_by_kernel(prof, wall_s: float) -> dict:
         entry = sums.setdefault(name, {"ms": 0.0, "calls": 0})
         entry["ms"] += us / 1e3
         entry["calls"] += ev.count
+        tile = re.search(r"cim_wgmma_kernel<\d+, (\d+)", ev.key)
+        if tile:
+            kind = ("decode_tiles" if int(tile.group(1)) <= 16
+                    else "prefill_tiles")
+            sub = entry.setdefault("by_tile", {}).setdefault(
+                kind, {"ms": 0.0, "calls": 0})
+            sub["ms"] += us / 1e3
+            sub["calls"] += ev.count
     busy = sum(e["ms"] for e in sums.values())
     for e in sums.values():
         e["share_of_wall"] = e["ms"] / (wall_s * 1e3)
@@ -185,9 +201,57 @@ class Timer:
 # Kernel phases
 # ---------------------------------------------------------------------------
 
+# M values of the bit-exact K1 cases: decode sizes, bucket edges, odd
+# counts and the prefill sizes of the serving path.
+K1_CASE_MS = (1, 3, 7, 8, 9, 16, 17, 509, 512)
+
+
+def parent_k1(torch, ops, a, w, a_scale, w_scale, bias, out_scale, *,
+              relu=False, requant=False):
+    """The byte-masked mma.sync kernel (``cim_matmul_launch``, the masked
+    path, K1's previous design, its code unchanged) on the same inputs:
+    the parent's K1 timed in this run at shapes that now take the wgmma
+    path."""
+    from repro_torch.kernels import build
+    m, k = a.shape
+    n = w.shape[1]
+    out = torch.empty((m, n), device="cuda",
+                      dtype=torch.int8 if requant else torch.float32)
+    rc = ops._fn()(a.data_ptr(), int(a.dtype == torch.float32),
+                   w.data_ptr(), a_scale.data_ptr(), w_scale.data_ptr(),
+                   bias.data_ptr(), out_scale.data_ptr(), out.data_ptr(), m,
+                   n, k, int(relu), int(requant),
+                   torch.cuda.current_stream().cuda_stream)
+    build.check(rc, "cim_matmul (masked kernel)")
+    return out
+
+
+def parent_k4(torch, ops, a, w, plane):
+    """The byte-masked bit-plane kernel (``bitplane_matmul_launch``, K4's
+    previous design, unchanged) on the same inputs."""
+    from repro_torch.kernels import build
+    (m, k), n = a.shape, w.shape[1]
+    out = torch.empty((m, n), dtype=torch.int32, device="cuda")
+    rc = ops._fn()(a.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k,
+                   plane, torch.cuda.current_stream().cuda_stream)
+    build.check(rc, "bitplane_matmul (masked kernel)")
+    return out
+
+
+def in_turns(timer, new, parent):
+    """new, parent, parent, new: each kernel's mean of its two turns."""
+    t = [timer.ms(new), timer.ms(parent), timer.ms(parent), timer.ms(new)]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
+
+
 def check_k1(torch, timer, ops, gen):
     """cim_matmul against its plain version: bit-exact at every (K, N) of
-    the model, M in {1, 8, 512}, f32 and int8 input, requant on and off."""
+    the model, every M of K1_CASE_MS, f32 and int8 input, requant on and
+    off, and at VGG-8's ragged shapes; then timed at every (K, N) at
+    decode M = 8 and prefill M = 512 beside the masked kernel (in turns) and
+    the ``torch._int_mm`` + epilogue yardstick."""
+    from repro_torch.device import sm_count
+    from repro_torch.kernels import autotune
     dev = "cuda"
     n_cases = 0
     for k, n in K1_SHAPES:
@@ -197,7 +261,7 @@ def check_k1(torch, timer, ops, gen):
         bias = torch.randn(n, generator=gen, device=dev) * 0.1
         a_scale = torch.tensor(0.05, device=dev)
         out_scale = torch.tensor(0.5, device=dev)
-        for m in (1, 8, 512):
+        for m in K1_CASE_MS:
             a32 = torch.randn(m, k, generator=gen, device=dev) * 2.0
             a8 = torch.randint(-128, 128, (m, k), generator=gen, device=dev,
                                dtype=torch.int32).to(torch.int8)
@@ -235,39 +299,61 @@ def check_k1(torch, timer, ops, gen):
                         f"K1 not bit-exact at ragged M={m} K={k} N={n} "
                         f"a={a.dtype} relu={relu} requant={requant}")
                 n_cases += 1
-    # Timing at the decode shape the main path runs most: gate/up.
-    m, k, n = 8, 4096, 12288
-    a = torch.randn(m, k, generator=gen, device=dev)
-    w = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
-                      dtype=torch.int32).to(torch.int8)
-    w_scale = torch.rand(n, generator=gen, device=dev) * 1e-3
-    bias = torch.zeros(n, device=dev)
+    # Timing at every serving (K, N), decode and prefill, f32 input (what
+    # the serving path passes).
     a_scale = torch.tensor(0.05, device=dev)
     one = torch.tensor(1.0, device=dev)
-    args = (a, w, a_scale, w_scale, bias, one)
-    ms = timer.ms(lambda: ops.cim_matmul_kernel(*args))
-    plain_ms = timer.ms(lambda: ops.cim_matmul_plain(*args), iters=5)
-    # Yardstick: torch._int_mm needs M > 16, so A is padded to 32 rows.
-    a_pad = torch.zeros(32, k, dtype=torch.int8, device=dev)
-    a_pad[:m] = torch.clamp(torch.round(a / a_scale), -128, 127).to(
-        torch.int8)
+    rows = []
+    for k, n in K1_SHAPES:
+        w = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                          dtype=torch.int32).to(torch.int8)
+        w_scale = torch.rand(n, generator=gen, device=dev) * 1e-3
+        bias = torch.zeros(n, device=dev)
+        for m in (8, 512):
+            a = torch.randn(m, k, generator=gen, device=dev)
+            args = (a, w, a_scale, w_scale, bias, one)
+            ms, parent_ms, turns = in_turns(
+                timer, lambda: ops.cim_matmul_kernel(*args),
+                lambda: parent_k1(torch, ops, *args))
+            plain_ms = timer.ms(lambda: ops.cim_matmul_plain(*args),
+                                iters=3)
+            # Yardstick: torch._int_mm on the pre-quantized A (it needs
+            # M > 16, so decode's A is padded to 32 rows) + the epilogue.
+            a_pad = torch.zeros(max(m, 32), k, dtype=torch.int8, device=dev)
+            a_pad[:m] = torch.clamp(torch.round(a / a_scale), -128,
+                                    127).to(torch.int8)
 
-    def library():
-        acc = torch._int_mm(a_pad, w)
-        return acc[:m].to(torch.float32) * (a_scale * w_scale) + bias
+            def library():
+                acc = torch._int_mm(a_pad, w)
+                return acc[:m].to(torch.float32) * (a_scale * w_scale) + bias
 
-    library_ms = timer.ms(library)
-    n_bytes = m * k * 4 + k * n + 2 * n * 4 + m * n * 4
-    b_ms, b_by = bound_ms(n_bytes, 2.0 * m * k * n, PEAK_INT8_OPS)
+            library_ms = timer.ms(library)
+            n_bytes = m * k * 4 + k * n + 2 * n * 4 + m * n * 4
+            b_ms, b_by = bound_ms(n_bytes, 2.0 * m * k * n, PEAK_INT8_OPS)
+            rows.append({"M": m, "K": k, "N": n,
+                         "config": autotune.cim_matmul_config(
+                             m, n, k, sm_count(dev))._asdict(),
+                         "ms": ms, "parent_ms": parent_ms,
+                         "turns_ms": turns, "plain_ms": plain_ms,
+                         "library_ms": library_ms, "bound_ms": b_ms,
+                         "bound_by": b_by})
+    main = next(r for r in rows if (r["M"], r["K"], r["N"]) == (8, 4096,
+                                                                 12288))
     return {"name": "cim_matmul", "route": "cuda",
             "source": "src/repro_torch/csrc/cim_matmul.cu",
             "replaces": "src/repro/kernels/cim_matmul/kernel.py:121",
             "max_abs_err": 0.0, "cases": n_cases,
+            "case_ms": list(K1_CASE_MS),
             "ragged_cases": "M=32768 K=27 N=128, M=32 K=1024 N=10",
-            "shape": f"M={m} K={k} N={n} f32 in",
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": library_ms,
-            "library": "torch._int_mm (M padded to 32) + epilogue"}
+            "shape": "M=8 K=4096 N=12288 f32 in",
+            "ms": main["ms"], "parent_ms": main["parent_ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "library": "torch._int_mm on the pre-quantized A (M padded to "
+                       "32 at decode) + epilogue",
+            "parent": "the masked kernel (cim_matmul_launch), K1's "
+                      "previous design, same inputs, in turns",
+            "shapes": rows}
 
 
 def _pool(torch, gen, nb, bs, kvh, d, int8):
@@ -511,7 +597,11 @@ def check_k3(torch, timer, ops, gen):
 def check_k4(torch, timer, ops, gen):
     """bitplane_matmul against its plain version at all 8 VGG-8 layer
     shapes and every plane, bit-exact; bitserial_matmul through the kernel
-    against the same shift-add over the plain planes, bit for bit."""
+    against the same shift-add over the plain planes, bit for bit; then
+    one plane timed at every shape beside the masked kernel (in turns) and
+    ``torch._int_mm``."""
+    from repro_torch.device import sm_count
+    from repro_torch.kernels import autotune
     n_cases = 0
     for m, k, n in VGG8_SHAPES:
         a = rand_i8(torch, (m, k), gen)
@@ -535,26 +625,44 @@ def check_k4(torch, timer, ops, gen):
         if not torch.equal(got, want):
             raise AssertionError(f"K4 bitserial_matmul differs from its "
                                  f"plain twin at M={m} K={k} N={n}")
-    # Timing at conv2, one plane (the sign plane).
-    m, k, n = VGG8_SHAPES[1]
-    a = rand_i8(torch, (m, k), gen)
-    w = rand_i8(torch, (k, n), gen, -127)
-    ms = timer.ms(lambda: ops.bitplane_matmul_kernel(a, w, 7))
-    plain_ms = timer.ms(lambda: ops.bitplane_matmul_plain(a, w, 7), iters=5)
-    # Yardstick: torch._int_mm on the plane, extracted beforehand (K and N
-    # are multiples of 8 and M > 16 at conv2, so nothing is padded).
-    bits = ((a.view(torch.uint8) >> 7) & 1).view(torch.int8)
-    library_ms = timer.ms(lambda: torch._int_mm(bits, w))
-    b_ms, b_by = bound_ms(m * k + k * n + m * n * 4, 2.0 * m * k * n,
-                          PEAK_INT8_OPS)
+    # Timing at every layer shape, one plane (the sign plane).
+    rows = []
+    for m, k, n in VGG8_SHAPES:
+        a = rand_i8(torch, (m, k), gen)
+        w = rand_i8(torch, (k, n), gen, -127)
+        ms, parent_ms, turns = in_turns(
+            timer, lambda: ops.bitplane_matmul_kernel(a, w, 7),
+            lambda: parent_k4(torch, ops, a, w, 7))
+        plain_ms = timer.ms(lambda: ops.bitplane_matmul_plain(a, w, 7),
+                            iters=3)
+        # Yardstick: torch._int_mm on the plane, extracted beforehand.  It
+        # needs M > 16 and K, N multiples of 8: conv1 (K = 27) and the
+        # head (N = 10) have no such call.
+        library_ms = None
+        if m > 16 and k % 8 == 0 and n % 8 == 0:
+            bits = ((a.view(torch.uint8) >> 7) & 1).view(torch.int8)
+            library_ms = timer.ms(lambda: torch._int_mm(bits, w))
+        b_ms, b_by = bound_ms(m * k + k * n + m * n * 4, 2.0 * m * k * n,
+                              PEAK_INT8_OPS)
+        rows.append({"M": m, "K": k, "N": n,
+                     "config": autotune.cim_matmul_config(
+                         m, n, k, sm_count("cuda"))._asdict(),
+                     "ms": ms, "parent_ms": parent_ms, "turns_ms": turns,
+                     "plain_ms": plain_ms, "library_ms": library_ms,
+                     "bound_ms": b_ms, "bound_by": b_by})
+    main = rows[1]
     return {"name": "bitplane_matmul", "route": "cuda",
             "source": "src/repro_torch/csrc/bitplane_matmul.cu",
             "replaces": "src/repro/kernels/bitserial_matmul/kernel.py:62",
             "max_abs_err": 0.0, "cases": n_cases,
-            "shape": f"M={m} K={k} N={n} (conv2), one plane",
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": library_ms,
-            "library": "torch._int_mm on the pre-extracted plane"}
+            "shape": "M=32768 K=1152 N=128 (conv2), one plane",
+            "ms": main["ms"], "parent_ms": main["parent_ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "library": "torch._int_mm on the pre-extracted plane",
+            "parent": "the masked kernel (bitplane_matmul_launch), K4's "
+                      "previous design, same inputs, in turns",
+            "shapes": rows}
 
 
 def code_diff(torch, got, want, what: str) -> dict:
@@ -729,8 +837,20 @@ def main_path(torch, cfg, cim_ops, paged_ops, *, device="cuda",
                     (paged_ops, "paged_attention_kernel"),
                     (paged_ops, "flash_prefill_kernel"),
                     (paged_ops, "merge_splits_kernel"))
+        # Calls made inside model.prefill_chunk are tagged "prefill", the
+        # rest "decode", so K1's time splits by phase.
+        phase = ["decode"]
+
+        def prefill_tagged(*a, _fn=M.prefill_chunk, **k):
+            phase[0] = "prefill"
+            try:
+                return _fn(*a, **k)
+            finally:
+                phase[0] = "decode"
+
         with profile(activities=[ProfilerActivity.CUDA]) as prof, \
-                event_timed(torch, wrappers) as events:
+                swapped(M, "prefill_chunk", prefill_tagged), \
+                event_timed(torch, wrappers, lambda: phase[0]) as events:
             sync()
             t0 = time.perf_counter()
             ce_ev.run(reqs)
@@ -739,11 +859,15 @@ def main_path(torch, cfg, cim_ops, paged_ops, *, device="cuda",
         kernel_time = {"phase": "main_kernel_time", "wall_s": ev_wall,
                        "timed_run_wall_s": wall, "events": {},
                        "profiler": device_time_by_kernel(prof, ev_wall)}
-        for name, pairs in events.items():
-            ms = sum(a.elapsed_time(b) for a, b in pairs)
-            kernel_time["events"][name] = {
-                "calls": len(pairs), "ms": ms,
-                "share_of_wall": ms / (ev_wall * 1e3)}
+        for name, triples in events.items():
+            entry = {}
+            for tag in (None, "decode", "prefill"):
+                sel = [(a, b) for a, b, t in triples
+                       if tag is None or t == tag]
+                ms = sum(a.elapsed_time(b) for a, b in sel)
+                entry[tag or "all"] = {"calls": len(sel), "ms": ms,
+                                       "share_of_wall": ms / (ev_wall * 1e3)}
+            kernel_time["events"][name] = entry
         emit(kernel_time)
 
     # Replay through the plain versions on the card.

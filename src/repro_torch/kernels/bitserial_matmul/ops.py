@@ -5,9 +5,11 @@ two's-complement activation bit, then a digital shift-add.
 :func:`bitplane_matmul` runs one plane through :func:`bitplane_matmul_kernel`
 (the CUDA kernel ``csrc/bitplane_matmul.cu``) on a CUDA tensor, or through
 :func:`bitplane_matmul_plain` (the same function in plain PyTorch) on a CPU
-tensor; a CUDA tensor never takes the plain path.  The kernel masks ragged
-M/N/K itself, so nothing is padded.  :func:`bitserial_matmul` launches the
-8 planes and shift-adds their partial sums in f32 from plane 0 up, the
+tensor; a CUDA tensor never takes the plain path.  Which of the file's
+two kernels runs is ``autotune.cim_matmul_config`` of the shape (the
+wgmma kernel where K and N are multiples of 16, else the byte-masked
+one); both mask ragged M/N/K themselves, so nothing is padded.
+:func:`bitserial_matmul` launches the 8 planes and shift-adds their partial sums in f32 from plane 0 up, the
 sign plane weighted -2**7, exactly in the reference's order: past 2**24
 the f32 accumulator rounds, and the same order gives the same rounding.
 """
@@ -18,7 +20,8 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.device import sm_count
+from repro_torch.kernels import autotune, build
 
 # Launches of the CUDA kernel (plain integer; reset it to 0 before a run).
 launches = 0
@@ -40,6 +43,15 @@ def _fn():
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _wgmma_fn():
+    fn = build.library("bitplane_matmul").bitplane_matmul_wgmma_launch
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -69,8 +81,14 @@ def bitplane_matmul_kernel(a_q: torch.Tensor, w_q: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.int32, device=dev)
     if m == 0 or n == 0:
         return out
-    rc = _fn()(a_q.data_ptr(), w_q.data_ptr(), out.data_ptr(), m, n, k,
-               plane, torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    cfg = autotune.cim_matmul_config(m, n, k, sm_count(dev))
+    if cfg.path == "wgmma":
+        rc = _wgmma_fn()(a_q.data_ptr(), w_q.data_ptr(), out.data_ptr(), m,
+                         n, k, plane, cfg.nt, cfg.bt, cfg.splits, stream)
+    else:
+        rc = _fn()(a_q.data_ptr(), w_q.data_ptr(), out.data_ptr(), m, n, k,
+                   plane, stream)
     build.check(rc, "bitplane_matmul")
     launches += 1
     return out

@@ -6,10 +6,12 @@ in the kernel prologue), bias and the optional int8 requant epilogue, then
 runs :func:`cim_matmul_kernel` (the CUDA kernel ``csrc/cim_matmul.cu``) on
 a CUDA tensor or :func:`cim_matmul_plain` (the same function in plain
 PyTorch) on a CPU tensor.  A CUDA tensor never takes the plain path: the
-kernel launches or the wrapper raises.  Every shape is taken: the kernel
-masks ragged M/N/K edges itself, at byte granularity where K or N is not
-a multiple of 4 (VGG-8's conv1 has K = 27, its head N = 10), so nothing
-is padded here.
+kernel launches or the wrapper raises.  Every shape is taken.  Which of
+the file's two kernels runs, with which tile and split, is
+``autotune.cim_matmul_config`` of the shape: the wgmma kernel where K and
+N are multiples of 16 (an f32 input is then quantized once per launch
+into an int8 scratch allocated here), else the byte-masked kernel (VGG-8's
+conv1 has K = 27, its head N = 10).  Nothing is padded here.
 """
 from __future__ import annotations
 
@@ -18,7 +20,8 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.device import sm_count
+from repro_torch.kernels import autotune, build
 
 # Launches of the CUDA kernel (plain integer; reset it to 0 before a run).
 launches = 0
@@ -59,6 +62,15 @@ def _fn():
     return fn
 
 
+@functools.cache
+def _wgmma_fn():
+    fn = build.library("cim_matmul").cim_matmul_wgmma_launch
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, i, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def cim_matmul_kernel(a, w_q, a_scale, w_scale, bias, out_scale, *,
                       relu: bool = False, requant: bool = False
                       ) -> torch.Tensor:
@@ -94,10 +106,22 @@ def cim_matmul_kernel(a, w_q, a_scale, w_scale, bias, out_scale, *,
                       device=dev)
     if m == 0:
         return out
-    rc = _fn()(a.data_ptr(), int(a.dtype == torch.float32), w_q.data_ptr(),
-               a_scale.data_ptr(), w_scale.data_ptr(), bias.data_ptr(),
-               out_scale.data_ptr(), out.data_ptr(), m, n, k, int(relu),
-               int(requant), torch.cuda.current_stream(dev).cuda_stream)
+    f32_in = int(a.dtype == torch.float32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    cfg = autotune.cim_matmul_config(m, n, k, sm_count(dev))
+    if cfg.path == "wgmma":
+        scratch = (torch.empty((m, k), dtype=torch.int8, device=dev)
+                   if f32_in else a)
+        rc = _wgmma_fn()(a.data_ptr(), f32_in, scratch.data_ptr(),
+                         w_q.data_ptr(), a_scale.data_ptr(),
+                         w_scale.data_ptr(), bias.data_ptr(),
+                         out_scale.data_ptr(), out.data_ptr(), m, n, k,
+                         int(relu), int(requant), cfg.nt, cfg.bt,
+                         cfg.splits, stream)
+    else:
+        rc = _fn()(a.data_ptr(), f32_in, w_q.data_ptr(), a_scale.data_ptr(),
+                   w_scale.data_ptr(), bias.data_ptr(), out_scale.data_ptr(),
+                   out.data_ptr(), m, n, k, int(relu), int(requant), stream)
     build.check(rc, "cim_matmul")
     launches += 1
     return out

@@ -26,6 +26,7 @@ import math
 import torch
 
 from repro_torch.core import quant
+from repro_torch.device import sm_count
 from repro_torch.kernels import autotune, build
 
 NEG_INF = -1e30
@@ -234,18 +235,6 @@ def paged_attention_kernel(q, k_pages, v_pages, k_scale, v_scale,
     build.check(rc, "paged_attention")
     decode_launches += 1
     return acc, m, l
-
-
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def sm_count(dev) -> int:
-    """Streaming multiprocessors of the CUDA device ``dev``."""
-    dev = torch.device(dev)
-    return _sm_count(torch.cuda.current_device() if dev.index is None
-                     else dev.index)
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, n_valid, *,

@@ -43,6 +43,50 @@ def test_cim_matmul_kernel_bit_exact(hopper):
                 cim_ops.cim_matmul_plain(*args, requant=requant))
 
 
+# The int8 GEMM kernels' paths (autotune.cim_matmul_config): decode tiles
+# of 8 and 16 tokens over 64- and 128-column tiles with split-K up to 16
+# blocks in a cluster, prefill tiles of 64 and 128 tokens with split-K,
+# ragged M/N/K tails zero-filled at 16 bytes, and the masked path (K = 27).
+GEMM_PATH_SHAPES = [(1, 4096, 1024), (8, 4096, 4096), (13, 2048, 128),
+                    (16, 12288, 4096), (17, 1152, 128), (64, 4096, 1024),
+                    (509, 4096, 1024), (70, 1040, 48), (130, 208, 272),
+                    (70, 27, 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", GEMM_PATH_SHAPES)
+def test_cim_matmul_gemm_paths_bit_exact(hopper, m, k, n):
+    from repro_torch.kernels import autotune
+    cfg = autotune.cim_matmul_config(m, n, k, tops.sm_count("cuda"))
+    assert cfg.path == ("masked" if k % 16 else "wgmma")
+    gen = torch.Generator(device="cuda").manual_seed(m + k + n)
+    w = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                      dtype=torch.int32).to(torch.int8)
+    ws = torch.rand(n, generator=gen, device="cuda") * 1e-3
+    bias = torch.randn(n, generator=gen, device="cuda")
+    a32 = torch.randn(m, k, generator=gen, device="cuda") * 2.0
+    a8 = torch.randint(-128, 128, (m, k), generator=gen, device="cuda",
+                       dtype=torch.int32).to(torch.int8)
+    for a in (a32, a8):
+        for relu, requant in ((False, False), (True, False), (False, True),
+                              (True, True)):
+            args = (a, w, torch.tensor(0.05, device="cuda"), ws, bias,
+                    torch.tensor(0.3, device="cuda"))
+            assert torch.equal(
+                cim_ops.cim_matmul_kernel(*args, relu=relu, requant=requant),
+                cim_ops.cim_matmul_plain(*args, relu=relu, requant=requant))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", GEMM_PATH_SHAPES)
+def test_bitplane_gemm_paths_bit_exact(hopper, m, k, n):
+    gen = torch.Generator(device="cuda").manual_seed(m + k + n)
+    a, w = _i8(gen, (m, k)), _i8(gen, (k, n), -127)
+    for plane in (0, 3, 7):
+        assert torch.equal(bs_ops.bitplane_matmul_kernel(a, w, plane),
+                           bs_ops.bitplane_matmul_plain(a, w, plane))
+
+
 def _pages(gen, shape, kind):
     """Two random pools of ``kind`` ("f32", "bf16" or "int8"): (k, v, k_scale,
     v_scale), the scales None for fp pools."""
