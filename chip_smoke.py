@@ -14,13 +14,18 @@ Phases (each prints one JSON line; any failure exits non-zero):
                M in K1_CASE_MS, and at VGG-8's ragged K = 27 and N = 10;
                K2 at one split and at the card's split count, then the
                decode merge; K4 at all 8 VGG-8 layer shapes and planes;
-               K5 at conv2/conv6/fc1 with a sampled chip) and times
+               K5 at conv2/conv6/fc1 with a sampled chip, codes equal to
+               its plain version and within one code of the simulation)
+               and times
                kernel, plain version, one PyTorch library call (the
                yardstick) and the bound (bytes / 3.35 TB/s or operations /
                the peak rate for the operand type, the larger).  K1 is
                timed at every serving (K, N) at M = 8 and 512 and K4 at
                every VGG-8 shape, each beside the byte-masked mma.sync
-               kernel (the masked path, the previous design; in turns).
+               kernel (the masked path, the previous design; in turns);
+               K5 at every VGG-8 shape beside two library yardsticks
+               (f32 torch.bmm, torch._int_mm) and the whole
+               cim_macro_matmul call.
 4. main     -- serves 8 requests through the port's ContinuousEngine at
                qwen3-8b's widths (w8a8_kernel plan, paged attention,
                chunked prefill, int8 KV pool, random weights from a seed),
@@ -39,8 +44,11 @@ Phases (each prints one JSON line; any failure exits non-zero):
 6. the ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
    ``{"ok": true, "device": ...}`` line.
 
-``--skip-main`` stops after the kernel phase (a quick kernel check).  Long
-output goes to chiprun_out/chip_smoke.json.
+``--skip-main`` stops after the kernel phase (a quick kernel check).
+``--k5-only --src DIR`` only times the whole CAAT macro op at every VGG-8
+shape, with the ``repro_torch`` package of another tree (a parent commit
+unpacked beside this one).  Long output goes to
+chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
@@ -666,10 +674,11 @@ def check_k4(torch, timer, ops, gen):
 
 
 def code_diff(torch, got, want, what: str) -> dict:
-    """The K5 tolerance: the f32 sums run in another order than the plain
-    version's (or the simulation's), so a code may move by one where
-    v * 128 lands within an ulp of a .5 boundary -- on at most 1e-3 of
-    the outputs, and never by more than one."""
+    """The K5 tolerance against the simulation: its float64 tree combine
+    runs in another order than the op's W_eff sum and converts in another
+    order in f32, so a code may move by one where v * 128 lands within an
+    ulp of a .5 boundary -- on at most 1e-3 of the outputs, and never by
+    more than one."""
     d = (got.to(torch.int64) - want.to(torch.int64)).abs()
     worst = int(d.max()) if d.numel() else 0
     n_off = int((d > 0).sum())
@@ -681,73 +690,169 @@ def code_diff(torch, got, want, what: str) -> dict:
             "codes": d.numel()}
 
 
+def k5_chip(torch, gen):
+    """The K5 checks' macro (1152 rows, nominal mismatch), one sampled chip,
+    and a full scale ~2.7 std of a random tile MAC (codes span the
+    range)."""
+    from repro_torch.core import macro
+    cfg = macro.nominal_config(rows=1152)
+    chip = macro.sample_chip(gen, cfg)
+    v_fs = torch.tensor(0.02 * cfg.rows * 127.0 * 127.0, device="cuda")
+    return cfg, chip, v_fs
+
+
+def k5_whole_op_ms(torch, timer, ops, gen) -> list:
+    """cim_macro_matmul, wrapper included, at every VGG-8 shape (ReLU on):
+    its time, and the device memory one call adds at its peak over what
+    was allocated before it.  Uses only the op's public signature, so
+    ``--src`` can measure another tree's op (the parent's) with this
+    script."""
+    cfg, chip, v_fs = k5_chip(torch, gen)
+    rows = []
+    for m, k, n in VGG8_SHAPES:
+        a = rand_i8(torch, (m, k), gen)
+        w = rand_i8(torch, (k, n), gen, -127)
+
+        def op():
+            return ops.cim_macro_matmul(a, w, chip, v_fs, cfg, relu=True)
+
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        op()
+        torch.cuda.synchronize()
+        rows.append({"M": m, "K": k, "N": n,
+                     "whole_op_peak_gb":
+                         (torch.cuda.max_memory_allocated() - base) / 1e9,
+                     "whole_op_ms": timer.ms(op, iters=5)})
+    return rows
+
+
 def check_k5(torch, timer, ops, gen):
     """caat_mac against its plain version through cim_macro_matmul at the
     conv2 (1 tile), conv6 (4 tiles) and fc1 (8 tiles) shapes with a
-    sampled chip, ReLU on and off; and, with an ideal ADC, against the
-    behavioural macro simulation (core.macro.cim_matmul_sim)."""
-    from repro_torch.core import adc, macro
-    cfg = macro.nominal_config(rows=1152)
-    chip = macro.sample_chip(gen, cfg)
+    sampled chip, ReLU on and off: codes equal; and, with an ideal ADC,
+    against the behavioural macro simulation (core.macro.cim_matmul_sim)
+    within the code tolerance.  Then timed at every VGG-8 shape, one launch
+    per row tile on operands made once, beside the plain version, two
+    library yardsticks (f32 ``torch.bmm`` over 9 folded planes, and
+    ``torch._int_mm`` over the stacked +/-1 planes + the float64 combine,
+    both on planes made outside the timing), the bound, and the whole
+    cim_macro_matmul call."""
+    from repro_torch.core import adc, macro, numerics
+    cfg, chip, v_fs = k5_chip(torch, gen)
     sim_chip = {"caat": chip["caat"], "adc": adc.ideal_adc(cfg.adc, "cuda")}
     checks = []
     for m, k, n in (VGG8_SHAPES[1], VGG8_SHAPES[5], VGG8_SHAPES[6]):
         a = rand_i8(torch, (m, k), gen)
         w = rand_i8(torch, (k, n), gen, -127)
-        # Full scale ~2.7 std of a random tile MAC: codes span the range.
-        v_fs = torch.tensor(0.02 * cfg.rows * 127.0 * 127.0, device="cuda")
         for relu in (True, False):
             got = ops.cim_macro_matmul(a, w, chip, v_fs, cfg, relu=relu)
             with swapped(ops, "caat_mac_kernel", ops.caat_mac_plain):
                 want = ops.cim_macro_matmul(a, w, chip, v_fs, cfg,
                                             relu=relu)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"K5 not equal to its plain version at M={m} K={k} "
+                    f"N={n} relu={relu}: {int((got != want).sum())} of "
+                    f"{got.numel()} codes differ")
             sim, _ = macro.cim_matmul_sim(a, w, sim_chip, v_fs, cfg,
                                           relu=relu)
             checks.append({
-                "shape": [m, k, n], "relu": relu,
-                "vs_plain": code_diff(torch, got, want,
-                                      f"K5 vs plain M={m} relu={relu}"),
+                "shape": [m, k, n], "relu": relu, "vs_plain": "equal",
                 "vs_sim": code_diff(torch, got, sim.to(torch.int32),
                                     f"K5 vs sim M={m} relu={relu}")})
-    # Timing at conv2: one launch on its single row tile.
-    m, k, n = VGG8_SHAPES[1]
-    a = rand_i8(torch, (m, k), gen)
-    w = rand_i8(torch, (k, n), gen, -127)
-    from repro_torch.core import caat, numerics
-    w_eff, off = caat.effective_linear_weights(chip["caat"])
-    a_fold = ops.fold_planes(numerics.encode_pm1(a), w_eff).contiguous()
-    w_bits = numerics.encode_pm1(w).permute(2, 0, 1).contiguous()
-    fs_ratio = k * cfg.act_sum * cfg.w_sum / (0.02 * k * 127.0 * 127.0)
-    scalars = torch.tensor([1.0 / k, 0.0, fs_ratio, 1.0], device="cuda")
-    scalars[1] = off.to(torch.float32)
-    ms = timer.ms(lambda: ops.caat_mac_kernel(a_fold, w_bits, scalars))
-    plain_ms = timer.ms(lambda: ops.caat_mac_plain(a_fold, w_bits, scalars),
-                        iters=5)
-    w_f32 = w_bits.to(torch.float32)
+    whole = k5_whole_op_ms(torch, timer, ops, gen)
+    f64 = torch.float64
+    rows = []
+    for (m, k, n), whole_row in zip(VGG8_SHAPES, whole):
+        a = rand_i8(torch, (m, k), gen)
+        w = rand_i8(torch, (k, n), gen, -127)
+        tiles, w_eff, scalars = ops.tile_operands(a, w, chip, v_fs, cfg,
+                                                  relu=True)
+        r = cfg.rows
+        kp = r * len(tiles)
 
-    def library():
-        # f32 bmm over the 9 planes (TF32 off) + the convert epilogue.
-        acc = torch.bmm(a_fold, w_f32).sum(0)
-        v = (acc * scalars[0] + scalars[1]) * scalars[2]
-        code = torch.clamp(torch.round(v * 128.0), -128, 127)
-        return torch.clamp_min(code, 0.0).to(torch.int32)
+        def run(fn):
+            for tile in tiles:
+                fn(*tile, w_eff, scalars)
 
-    library_ms = timer.ms(library)
-    n_bytes = a_fold.numel() * 4 + w_bits.numel() + 16 + m * n * 4
-    b_ms, b_by = bound_ms(n_bytes, 2.0 * 9 * m * k * n, PEAK_F32_OPS)
+        ms = timer.ms(lambda: run(ops.caat_mac_kernel))
+        plain_ms = timer.ms(lambda: run(ops.caat_mac_plain), iters=3)
+        # Library yardsticks on planes made here, outside the timing.
+        a_p = torch.nn.functional.pad(a, (0, kp - k))
+        w_p = torch.nn.functional.pad(w, (0, 0, 0, kp - k))
+        w_pm = numerics.encode_pm1(w_p)                      # [K', N, 9]
+        a_pm = numerics.encode_pm1(a_p)                      # [B, K', 9]
+        a_fold = torch.einsum("bri,ij->jbr", a_pm.to(f64), w_eff).to(
+            torch.float32)
+        del a_pm
+        w_f32 = w_pm.permute(2, 0, 1).to(torch.float32).contiguous()
+
+        def epilogue(acc):
+            v = (acc * scalars[0] + scalars[1]) * scalars[2]
+            code = torch.clamp(torch.round(v * 128.0), -128, 127)
+            return code.to(torch.int32)
+
+        def bmm_library():
+            out = 0
+            for t in range(len(tiles)):
+                sl = slice(t * r, (t + 1) * r)
+                out = out + epilogue(torch.bmm(a_fold[:, :, sl],
+                                               w_f32[:, sl]).sum(0))
+            return torch.clamp_min(out, 0)
+
+        bmm_ms = timer.ms(bmm_library)
+        del a_fold, w_f32
+        stacked = [(ops.pm1_planes(a_t).reshape(8 * m, r),
+                    w_pm[t * r:(t + 1) * r, :, :8].permute(0, 2, 1)
+                    .reshape(r, 8 * n).contiguous())
+                   for t, (a_t, _, _) in enumerate(tiles)]
+        w_sums = [ws.to(f64) for _, _, ws in tiles]
+        we64 = w_eff[:8, :8].reshape(64)
+
+        def int8_library():
+            out = 0
+            for (a8, w8), ws in zip(stacked, w_sums):
+                count = torch._int_mm(a8, w8).view(8, m, 8, n)
+                acc = count.permute(1, 3, 0, 2).reshape(m * n, 64).to(
+                    f64) @ we64
+                row = a8.view(8, m, r).sum(-1, dtype=torch.int32).to(f64)
+                acc = (acc.view(m, n) - (w_eff[:8, 8] @ row)[:, None]
+                       - (w_eff[8, :8] @ ws)[None, :] + w_eff[8, 8] * r)
+                out = out + epilogue(acc.to(torch.float32))
+            return torch.clamp_min(out, 0)
+
+        int8_ms = timer.ms(int8_library, iters=5)
+        del stacked
+        n_bytes = (m * kp + sum(t[1].numel() + t[2].numel() * 4
+                                for t in tiles) + 81 * 8 + 16 + m * n * 4)
+        b_ms, b_by = bound_ms(n_bytes, 2.0 * 64 * m * kp * n, PEAK_INT8_OPS)
+        rows.append({"M": m, "K": k, "N": n, "tiles": len(tiles), "ms": ms,
+                     "plain_ms": plain_ms, "bmm_library_ms": bmm_ms,
+                     "int8_library_ms": int8_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, **whole_row})
+    main = rows[1]
     return {"name": "caat_mac", "route": "cuda",
             "source": "src/repro_torch/csrc/caat_mac.cu",
             "replaces": "src/repro/kernels/caat_mac/kernel.py:84",
-            "max_abs_err": float(max(c[key]["max_abs"] for c in checks
-                                     for key in ("vs_plain", "vs_sim"))),
-            "error_unit": "ADC codes (|diff| <= 1 on <= 1e-3 of outputs)",
+            "max_abs_err": 0.0,
+            "error_unit": "ADC codes against the plain version (equal); "
+                          "vs_sim: |diff| <= 1 on <= 1e-3 of outputs",
             "checks": checks,
-            "shape": f"B={m} R={k} N={n} (conv2), 9 planes, one tile",
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": library_ms,
-            "library": "torch.bmm over the 9 f32 planes (TF32 off) + "
-                       "epilogue",
-            "bound_rate": "f32 CUDA cores, 67 TFLOP/s"}
+            "shape": "B=32768 R=1152 N=128 (conv2), one tile, 64 int8 "
+                     "plane products",
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["int8_library_ms"],
+            "library": "torch._int_mm over the stacked +/-1 planes "
+                       "[8B, R] x [R, 8N] + the float64 combine",
+            "bmm_library_ms": main["bmm_library_ms"],
+            "bmm_library": "torch.bmm over the 9 W_eff-folded f32 planes "
+                           "(TF32 off) + epilogue",
+            "whole_op_ms": main["whole_op_ms"],
+            "bound_rate": "int8 tensor cores, 1979 TOP/s",
+            "shapes": rows}
 
 
 # ---------------------------------------------------------------------------
@@ -1080,10 +1185,21 @@ def vgg8_path(torch, cim_ops, bs_ops, caat_ops, *, device="cuda", cfg=None,
     # per row tile.
     expected["caat_mac"] = sum(-(-sp.in_dim // sp.macro.rows)
                                for sp in cfg.layer_specs())
+    # Its device memory alone: the peak over the 8 calls, beside what was
+    # allocated before them.
+    cuda = device == "cuda"
+    sync()
+    phase_peak = torch.cuda.max_memory_allocated() if cuda else 0
+    k5_base = torch.cuda.memory_allocated() if cuda else 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    k5_codes = [caat_ops.cim_macro_matmul(a, w, chip, v_fs, mcfg, relu=relu)
+                for a, w, chip, v_fs, mcfg, relu in calls]
+    sync()
+    k5_peak = torch.cuda.max_memory_allocated() if cuda else 0
     k5 = []
-    for path, (a, w, chip, v_fs, mcfg, relu) in zip(vgg.VGG8_LAYER_PATHS,
-                                                    calls):
-        got = caat_ops.cim_macro_matmul(a, w, chip, v_fs, mcfg, relu=relu)
+    for path, got, (a, w, chip, v_fs, mcfg, relu) in zip(
+            vgg.VGG8_LAYER_PATHS, k5_codes, calls):
         ideal = {"caat": chip["caat"], "adc": adc.ideal_adc(mcfg.adc,
                                                               device)}
         want, _ = sim(a, w, ideal, v_fs, mcfg, relu=relu)
@@ -1120,8 +1236,11 @@ def vgg8_path(torch, cim_ops, bs_ops, caat_ops, *, device="cuda", cfg=None,
               "macro_energy_source": "65nm macro energy model of the "
                                      "fine-tuned cim forward's conversions",
               "k5_vs_sim": k5,
-              "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
-                              if device == "cuda" else None)}
+              "peak_mem_gb": (max(phase_peak,
+                                  torch.cuda.max_memory_allocated()) / 1e9
+                              if cuda else None),
+              "k5_peak_mem_gb": k5_peak / 1e9 if cuda else None,
+              "k5_base_mem_gb": k5_base / 1e9 if cuda else None}
     result["ok"] = not failures
     return result, launches, failures
 
@@ -1129,13 +1248,19 @@ def vgg8_path(torch, cim_ops, bs_ops, caat_ops, *, device="cuda", cfg=None,
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--skip-main", action="store_true")
+    ap.add_argument("--k5-only", action="store_true",
+                    help="only time the whole CAAT macro op at every "
+                         "VGG-8 shape")
+    ap.add_argument("--src", default=str(ROOT / "src"),
+                    help="the tree whose repro_torch package is driven "
+                         "(with --k5-only: another tree's op)")
     args = ap.parse_args()
 
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, args.src)
     from repro_torch.kernels import build
     from repro_torch.kernels.bitserial_matmul import ops as bs_ops
     from repro_torch.kernels.caat_mac import ops as caat_ops
@@ -1157,6 +1282,12 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     report: dict = {"nvidia_smi": smi}
 
+    if args.k5_only:   # builds the one kernel at its first launch
+        emit({"phase": "k5_whole_op", "src": args.src, "nvidia_smi": smi,
+              "shapes": k5_whole_op_ms(
+                  torch, Timer(torch), caat_ops,
+                  torch.Generator(device="cuda").manual_seed(1234))})
+        return 0
     build_s = build.build_all()
     report["ptxas"] = build.BUILD_LOG
     emit({"phase": "build", "seconds": build_s,

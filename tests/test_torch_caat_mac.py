@@ -140,24 +140,107 @@ def test_ideal_chip_is_quantized_exact_mac():
 
 
 def test_plain_tile_structure():
-    """caat_mac_plain on one tile: the folded planes are the correctly
-    rounded fold, the strided tile view equals a contiguous copy, and the
-    ReLU flag is read from the scalars."""
+    """caat_mac_plain on one tile of the packed operands: the weight
+    planes sit where the kernel reads them, the strided row-tile view of
+    the activations equals a contiguous copy, and the ReLU flag is read
+    from the scalars."""
     jcfg, tcfg = _configs(64)
     _, ts = _carried_chip(7, jcfg)
     a, w = _inputs(7, 6, 128, 10)
     w_eff, off = tcaat.effective_linear_weights(ts["caat"])
-    bits = tnum.encode_pm1(_t(a))
-    a_fold = tops.fold_planes(bits, w_eff)
-    ref = np.einsum("bmk,ki->ibm", bits.numpy().astype(np.float64),
-                    w_eff.numpy()).astype(np.float32)
-    np.testing.assert_array_equal(a_fold.numpy(), ref)
-    w_bits = tnum.encode_pm1(_t(w)).permute(2, 0, 1).contiguous()
+    w_planes, w_sum = tops.pack_weight_planes(_t(w), 64)
+    assert tuple(w_planes.shape) == (2, 1, 8, tops.COLS, 64)
+    assert tuple(w_sum.shape) == (2, 8, 10)
+    bits = tnum.encode_pm1(_t(w)).numpy()                    # [K, N, 9]
+    want = np.zeros((2, 1, 8, tops.COLS, 64), np.int8)
+    want[:, 0, :, :10] = bits[..., :8].reshape(2, 64, 10, 8).transpose(
+        0, 3, 2, 1)
+    np.testing.assert_array_equal(w_planes.numpy(), want)
+    a_t = _t(a)
     for relu in (0.0, 1.0):
         scalars = torch.tensor([1 / 64, float(off), 3.0, relu])
-        view = tops.caat_mac_plain(a_fold[:, :, 64:], w_bits[:, 64:],
-                                   scalars)
-        copy = tops.caat_mac_plain(a_fold[:, :, 64:].contiguous(),
-                                   w_bits[:, 64:].contiguous(), scalars)
+        view = tops.caat_mac_plain(a_t[:, 64:], w_planes[1], w_sum[1],
+                                   w_eff, scalars)
+        copy = tops.caat_mac_plain(a_t[:, 64:].contiguous(),
+                                   w_planes[1].clone(), w_sum[1].clone(),
+                                   w_eff, scalars)
         assert torch.equal(view, copy)
         assert bool((view < 0).any()) == (relu == 0.0)
+
+
+def test_offset_binary_bit_rule_is_encode_pm1():
+    """On all 256 int8 values: the bit rule of pm1_planes, and the
+    kernel's form of it on packed 32-bit words (``y = ((x ^ 0x80808080) >>
+    s) & 0x01010101``, then ``((y ^ 0x01010101) * 0xFF) | 0x01010101``),
+    give encode_pm1's planes 0-7; plane 8 is -1 everywhere."""
+    x = torch.arange(-128, 128, dtype=torch.int32).to(torch.int8)
+    ref = tnum.encode_pm1(x)                                 # [256, 9]
+    assert torch.equal(tops.pm1_planes(x).T, ref[:, :8])
+    assert bool((ref[:, 8] == -1).all())
+    words = x.numpy().view(np.uint32).astype(np.uint64)      # 64 words
+    for k in range(8):
+        s = 7 - k if k < 7 else 0
+        y = ((words ^ 0x80808080) >> s) & 0x01010101
+        pm = (((y ^ 0x01010101) * 0xFF) | 0x01010101) & 0xFFFFFFFF
+        got = pm.astype(np.uint32).view(np.int8)
+        np.testing.assert_array_equal(got, ref[:, k].numpy())
+
+
+def test_constant_plane_shortcut_equals_81_products():
+    """The constant plane 8 (all -1): count[k, 8] is minus the row sum of
+    activation plane k, count[8, i] minus the packed column sum of weight
+    plane i, count[8, 8] = R; the 64 others are the products of the
+    offset-binary planes with the weight planes."""
+    rows = 96
+    a, w = _inputs(11, 7, rows, 70)
+    ab = tnum.encode_pm1(_t(a)).numpy().astype(np.float64)   # [B, R, 9]
+    wb = tnum.encode_pm1(_t(w)).numpy().astype(np.float64)   # [R, N, 9]
+    count = np.einsum("brk,rni->kibn", ab, wb)
+    planes = tops.pm1_planes(_t(a)).numpy().astype(np.float64)
+    _, w_sum = tops.pack_weight_planes(_t(w), rows)
+    np.testing.assert_array_equal(
+        count[:8, :8], np.einsum("kbr,rni->kibn", planes, wb[..., :8]))
+    np.testing.assert_array_equal(
+        count[:8, 8], np.broadcast_to(-planes.sum(-1)[..., None],
+                                      (8, 7, 70)))
+    np.testing.assert_array_equal(
+        count[8, :8], np.broadcast_to(-w_sum[0].numpy()[:, None],
+                                      (8, 7, 70)))
+    assert (count[8, 8] == rows).all()
+
+
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("n", [10, 70])
+@pytest.mark.parametrize("rows", [64, 96])
+def test_plain_equals_81_plane_float64(rows, n, relu):
+    """caat_mac_plain's codes equal a float64 evaluation over all 81
+    encode_pm1 plane products with core.caat's W_eff, combined in the same
+    order (k outer, i inner, no FMA) and converted the same way; and the
+    op agrees with core.caat's float64 tree combine (the simulation)
+    within the code tolerance."""
+    jcfg, tcfg = _configs(rows)
+    _, ts = _carried_chip(rows + n, jcfg)
+    a, w = _inputs(rows + n, 9, rows, n)
+    w_eff, off = tcaat.effective_linear_weights(ts["caat"])
+    w_planes, w_sum = tops.pack_weight_planes(_t(w), rows)
+    scalars = torch.tensor([1 / rows, float(off), 2.5, float(relu)])
+    got = tops.caat_mac_plain(_t(a), w_planes[0], w_sum[0], w_eff, scalars)
+    ab = tnum.encode_pm1(_t(a)).numpy().astype(np.float64)
+    wb = tnum.encode_pm1(_t(w)).numpy().astype(np.float64)
+    count = np.einsum("brk,rni->kibn", ab, wb)
+    we = w_eff.numpy()
+    acc = np.zeros((9, n))
+    for k in range(9):
+        for i in range(9):
+            acc = acc + we[k, i] * count[k, i]
+    v = (torch.from_numpy(acc).float() * scalars[0] + scalars[1]) \
+        * scalars[2]
+    want = torch.clamp(torch.round(v * 128.0), -128, 127)
+    if relu:
+        want = torch.clamp_min(want, 0.0)
+    assert torch.equal(got, want.to(torch.int32))
+    v_fs = torch.tensor(rows * 128 * 128 * 0.25)
+    op = tops.cim_macro_matmul(_t(a), _t(w), ts, v_fs, tcfg, relu=relu)
+    sim, _ = tmacro.cim_matmul_sim(_t(a), _t(w), _sim_chip(ts, tcfg), v_fs,
+                                   tcfg, relu=relu)
+    assert codes_within(op.numpy(), sim.numpy())

@@ -255,3 +255,40 @@ def test_caat_mac_kernel_matches_plain_and_sim(hopper, relu, monkeypatch):
             v_fs, cfg, relu=relu)
         d = (got - sim.to(torch.int32)).abs()
         assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("rows", [64, 128, 1152])
+def test_caat_mac_kernel_equals_plain(hopper, rows, relu):
+    """K5 alone on the packed operands of two row tiles (the second a
+    strided view of the activations): codes equal to its plain version,
+    both combining the 81 plane counts in float64 in one order, at every
+    B in (1, 3, 65, 32768) and N in (10, 70, 128, 1024)."""
+    gen = torch.Generator(device="cuda").manual_seed(rows)
+    cfg = macro.nominal_config(rows=rows)
+    chip = macro.sample_chip(gen, cfg)
+    v_fs = torch.tensor(0.02 * rows * 127 * 127, device="cuda")
+    for b in (1, 3, 65, 32768):
+        for n in (10, 70, 128, 1024):
+            a, w = _i8(gen, (b, 2 * rows)), _i8(gen, (2 * rows, n), -127)
+            tiles, w_eff, scalars = caat_ops.tile_operands(a, w, chip, v_fs,
+                                                           cfg)
+            scalars = scalars.clone()
+            scalars[3] = 1.0 if relu else 0.0
+            for tile in tiles:
+                got = caat_ops.caat_mac_kernel(*tile, w_eff, scalars)
+                want = caat_ops.caat_mac_plain(*tile, w_eff, scalars)
+                assert torch.equal(got, want), (rows, b, n, relu)
+
+
+@pytest.mark.gpu
+def test_caat_mac_kernel_rejects_ragged_rows(hopper):
+    """Rows not a multiple of 16 are refused by the launcher, not run."""
+    cfg = macro.nominal_config(rows=72)
+    a = torch.zeros((8, 72), dtype=torch.int8, device="cuda")
+    w = torch.zeros((72, 16), dtype=torch.int8, device="cuda")
+    tiles, w_eff, scalars = caat_ops.tile_operands(
+        a, w, macro.ideal_chip(cfg, "cuda"), 1e4, cfg)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        caat_ops.caat_mac_kernel(*tiles[0], w_eff, scalars)
