@@ -34,14 +34,24 @@ Phases (each prints one JSON line; any failure exits non-zero):
                wrapper and the decode merge (device time by kernel, K1's
                split into decode and prefill calls, its own line), and
                replays the requests through the plain versions.
-5. vgg8     -- the paper's VGG-8 deployment path (repro_torch.launch.fig10)
+5. static   -- the static engine (Engine.generate over dense KV caches)
+               on the same model and prompts, one call per prompt:
+               greedy with the kernels (K1 must launch on every linear),
+               greedy with the plain versions (prefill logits gated as in
+               main), twice sampled with one key (identical streams); the
+               sampler's random bits on the card equal the CPU's and its
+               gumbel is within 2 ulp; decode-step and sampler times.
+6. blocking -- the serving path with blocking prefill (the engine's
+               default), paged attention, sampled at temperature 0.8:
+               every request OK, K1 and K2 launched.
+7. vgg8     -- the paper's VGG-8 deployment path (repro_torch.launch.fig10)
                at its published widths with random weights from a seed:
                w8a8_kernel (with and without residency) and
                bitserial_kernel logits bit-identical to their plain plans,
                the cim plan with 8 sampled chips, calibrated full scales
                and per-channel fine-tunes, and the CAAT macro op on every
                cim layer's int8 inputs against the behavioural simulation.
-6. the ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
+8. the ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 ``--skip-main`` stops after the kernel phase (a quick kernel check).
@@ -873,52 +883,152 @@ def plain_versions(cim_ops, paged_ops):
         yield
 
 
+# The serving phases' model and requests: qwen3-8b frozen under
+# w8a8_kernel (a_scale 0.05) from seed 0, 8 prompts of these lengths drawn
+# from seed 1, 32 new tokens each.
+PROMPT_LENS = (512, 64, 200, 96, 384, 128, 256, 80)
+ARRIVALS = (0, 0, 0, 2, 4, 8, 8, 16)
+MAX_NEW = 32
+SAMPLE_SEED, TEMPERATURE = 7, 0.8
+
+
+def frozen_params(torch, cfg, device, cache=None):
+    """The serving phases' parameters; returns (params, plan, init_s).
+    With a ``cache`` dict they are made once per (cfg, device) and kept
+    there for the next serving phase."""
+    from repro_torch.core import backend
+    from repro_torch.models import model as M
+    key = (cfg, str(device))
+    if cache is None or key not in cache:
+        plan = backend.load_plan("w8a8_kernel")
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = M.freeze_params(M.init(cfg, gen, device=device),
+                                 a_scale=0.05, plan=plan)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        built = (params, plan, time.perf_counter() - t0)
+        if cache is None:
+            return built
+        cache[key] = built
+    return cache[key]
+
+
+def serving_requests(torch, cfg):
+    from repro_torch.serve import Request
+    rng = torch.Generator().manual_seed(1)
+    return [Request(rid=i, prompt=torch.randint(
+                0, cfg.vocab, (n,), generator=rng).numpy(),
+                max_new=MAX_NEW, arrival_step=a)
+            for i, (n, a) in enumerate(zip(PROMPT_LENS, ARRIVALS))]
+
+
+def chunked_prefill_logits(torch, params, cfg, prompt, mode, *, chunk,
+                           device):
+    """One prompt's last logits through model.prefill_chunk over a fresh
+    bf16 pool of 16-token blocks."""
+    from repro_torch.models import model as M
+    from repro_torch.serve import kv_pool
+    n = len(prompt)
+    nblk = -(-n // 16)
+    pages = kv_pool.init_pages(cfg, nblk + 1, 16, torch.bfloat16,
+                               device=device)
+    tables = torch.arange(1, nblk + 1, dtype=torch.int32,
+                          device=device)[None]
+    prompt = torch.as_tensor(prompt, device=device).long()
+    for c0 in range(0, n, chunk):
+        cnt = min(chunk, n - c0)
+        toks = torch.zeros(1, chunk, dtype=torch.long, device=device)
+        toks[0, :cnt] = prompt[c0:c0 + cnt]
+        lg, pages = M.prefill_chunk(
+            params, toks, cfg, pages=pages, block_tables=tables,
+            pos=torch.tensor([c0], device=device),
+            n_tok=torch.tensor([cnt], device=device),
+            write_mask=torch.tensor([True], device=device),
+            has_past=c0 > 0, mode=mode)
+    return lg[0, :cfg.vocab].float()
+
+
+def reset_launches(cim_ops, paged_ops):
+    cim_ops.launches = 0
+    paged_ops.decode_launches = 0
+    paged_ops.prefill_launches = 0
+    paged_ops.merge_launches = 0
+
+
+def read_launches(cim_ops, paged_ops) -> dict:
+    return {"cim_matmul": cim_ops.launches,
+            "paged_attention": paged_ops.decode_launches,
+            "flash_prefill": paged_ops.prefill_launches,
+            "merge_splits": paged_ops.merge_launches}
+
+
+def logit_gate(torch, pf_logits, tokens_kernel, tokens_plain) -> dict:
+    """Kernel vs plain prefill logits against the plain-vs-plain
+    reordering floor (``pf_logits`` holds "kernel", "plain" and "reorder"
+    lists), and first tokens that differ beyond that noise."""
+    d_kp, d_floor, scale, margins = [], [], [], []
+    ties, mismatch, gaps = [], [], {}
+    for i, (lk, lp, lr) in enumerate(zip(*pf_logits.values())):
+        d_kp.append((lk - lp).abs().max().item())
+        d_floor.append((lp - lr).abs().max().item())
+        scale.append(lp.abs().max().item())
+        top2 = lp.topk(2).values
+        margins.append(float(top2[0] - top2[1]))
+        tk, tp = int(tokens_kernel[i][0]), int(tokens_plain[i][0])
+        if tk != tp:
+            # A different first token is a tie at this precision only when
+            # the kernel's pick is within this request's reordering noise
+            # (plain vs plain) of the plain maximum.
+            gaps[i] = float(lp[tp] - lp[tk])
+            (ties if gaps[i] <= d_floor[-1] else mismatch).append(i)
+    failures = []
+    # Tolerance: reordering the attention sums alone moves these logits by
+    # several percent of their range (the plain-vs-plain noise floor), so
+    # kernel vs plain agreement is held to 1.5x that measured floor.
+    if not max(d_kp) <= 1.5 * max(d_floor):
+        failures.append(f"prefill logits differ by {max(d_kp)}, beyond 1.5x "
+                        f"the noise floor {max(d_floor)}")
+    if mismatch:
+        failures.append(f"first tokens of {mismatch} differ beyond the "
+                        "logit noise")
+    return {"first_tokens_identical": sum(
+                int(int(a[0]) == int(b[0]))
+                for a, b in zip(tokens_kernel, tokens_plain)),
+            "first_token_ties": ties, "first_token_mismatches": mismatch,
+            "first_token_plain_logit_gaps": gaps,
+            "prefill_logit_max_abs_diff": d_kp,
+            "prefill_logit_noise_floor": d_floor,
+            "prefill_logit_range": scale,
+            "prefill_top2_margin_plain": margins}, failures
+
+
 def main_path(torch, cfg, cim_ops, paged_ops, *, device="cuda",
-              chunk: int = 64):
+              chunk: int = 64, cache=None):
     """Serve 8 requests through the port's ContinuousEngine at ``cfg``'s
     widths, then replay them through the plain versions.  (``device`` and
     ``chunk`` let the same code be rehearsed at a reduced size on CPU.)"""
-    from repro_torch.core import backend
     from repro_torch.models import model as M
-    from repro_torch.serve import ContinuousEngine, Request, RequestStatus
-    from repro_torch.serve import kv_pool
+    from repro_torch.serve import ContinuousEngine, RequestStatus
 
     def sync():
         if device == "cuda":
             torch.cuda.synchronize()
 
-    plan = backend.load_plan("w8a8_kernel")
-    t0 = time.perf_counter()
-    gen = torch.Generator(device=device).manual_seed(0)
-    params = M.freeze_params(M.init(cfg, gen, device=device), a_scale=0.05,
-                             plan=plan)
-    sync()
-    init_s = time.perf_counter() - t0
-    rng = torch.Generator().manual_seed(1)
-    prompt_lens = (512, 64, 200, 96, 384, 128, 256, 80)
-    arrivals = (0, 0, 0, 2, 4, 8, 8, 16)
-    reqs = [Request(rid=i, prompt=torch.randint(
-                0, cfg.vocab, (n,), generator=rng).numpy(),
-                max_new=32, arrival_step=a)
-            for i, (n, a) in enumerate(zip(prompt_lens, arrivals))]
+    params, plan, init_s = frozen_params(torch, cfg, device, cache)
+    reqs = serving_requests(torch, cfg)
     kw = dict(plan=plan, max_batch=8, kv_blocks=512, block_size=16,
               segment_len=8, paged_attn=True, chunked_prefill=True,
               prefill_chunk=chunk, device=device)
 
     ce = ContinuousEngine(params, cfg, **kw)
-    cim_ops.launches = 0
-    paged_ops.decode_launches = 0
-    paged_ops.prefill_launches = 0
-    paged_ops.merge_launches = 0
+    reset_launches(cim_ops, paged_ops)
     sync()
     t0 = time.perf_counter()
     res = ce.run(reqs)
     sync()
     wall = time.perf_counter() - t0
-    launches = {"cim_matmul": cim_ops.launches,
-                "paged_attention": paged_ops.decode_launches,
-                "flash_prefill": paged_ops.prefill_launches,
-                "merge_splits": paged_ops.merge_launches}
+    launches = read_launches(cim_ops, paged_ops)
     n_tok = sum(len(r.tokens) for r in res.values())
     bad = [rid for rid, r in res.items() if r.status is not RequestStatus.OK]
     if len(res) != len(reqs) or bad:
@@ -997,44 +1107,12 @@ def main_path(torch, cfg, cim_ops, paged_ops, *, device="cuda",
                else contextlib.nullcontext())
         with ctx:
             for r in reqs:
-                n = r.prompt_len
-                nblk = -(-n // 16)
-                pages = kv_pool.init_pages(cfg, nblk + 1, 16,
-                                           torch.bfloat16, device=device)
-                tables = torch.arange(1, nblk + 1, dtype=torch.int32,
-                                      device=device)[None]
-                prompt = torch.as_tensor(r.prompt, device=device).long()
-                for c0 in range(0, n, chunk):
-                    cnt = min(chunk, n - c0)
-                    toks = torch.zeros(1, chunk, dtype=torch.long,
-                                       device=device)
-                    toks[0, :cnt] = prompt[c0:c0 + cnt]
-                    lg, pages = M.prefill_chunk(
-                        params, toks, cfg, pages=pages, block_tables=tables,
-                        pos=torch.tensor([c0], device=device),
-                        n_tok=torch.tensor([cnt], device=device),
-                        write_mask=torch.tensor([True], device=device),
-                        has_past=c0 > 0, mode=mode)
-                pf_logits[name].append(lg[0, :cfg.vocab].float())
-    d_kp, d_floor, scale, margins = [], [], [], []
-    ties, mismatch, gaps = [], [], {}
-    for i, (lk, lp, lr) in enumerate(zip(*pf_logits.values())):
-        d_kp.append((lk - lp).abs().max().item())
-        d_floor.append((lp - lr).abs().max().item())
-        scale.append(lp.abs().max().item())
-        top2 = lp.topk(2).values
-        margins.append(float(top2[0] - top2[1]))
-        tk, tp = int(res[reqs[i].rid].tokens[0]), int(
-            res_plain[reqs[i].rid].tokens[0])
-        if tk != tp:
-            # A different first token is a tie at this precision only when
-            # the kernel's pick is within this request's reordering noise
-            # (plain vs plain) of the plain maximum.
-            gaps[reqs[i].rid] = float(lp[tp] - lp[tk])
-            if gaps[reqs[i].rid] <= d_floor[-1]:
-                ties.append(reqs[i].rid)
-            else:
-                mismatch.append(reqs[i].rid)
+                pf_logits[name].append(chunked_prefill_logits(
+                    torch, params, cfg, r.prompt, mode, chunk=chunk,
+                    device=device))
+    gate, failures = logit_gate(
+        torch, pf_logits, [res[r.rid].tokens for r in reqs],
+        [res_plain[r.rid].tokens for r in reqs])
     result = {"phase": "main",
               "device": (torch.cuda.get_device_name(0) if device == "cuda"
                          else device),
@@ -1047,32 +1125,246 @@ def main_path(torch, cfg, cim_ops, paged_ops, *, device="cuda",
               "prefill_chunks": ce.last_run_prefill_chunks,
               "launches": launches,
               "kernel_device_time": kernel_time,
-              "first_tokens_identical": sum(
-                  int(res[i].tokens[0] == res_plain[i].tokens[0])
-                  for i in res),
-              "first_token_ties": ties, "first_token_mismatches": mismatch,
-              "first_token_plain_logit_gaps": gaps,
+              **gate,
               "first_tokens": [int(res[i].tokens[0]) for i in sorted(res)],
               "first_tokens_plain": [int(res_plain[i].tokens[0])
                                      for i in sorted(res)],
               "stream_agreement": agree,
-              "prefill_logit_max_abs_diff": d_kp,
-              "prefill_logit_noise_floor": d_floor,
-              "prefill_logit_range": scale,
-              "prefill_top2_margin_plain": margins,
               "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
                               if device == "cuda" else None)}
+    result["ok"] = not failures
+    return result, launches, failures
+
+
+# ---------------------------------------------------------------------------
+# The static engine, blocking prefill and the sampler
+# ---------------------------------------------------------------------------
+
+def sampler_check(torch, engine, vocab: int, device="cuda"):
+    """The seeded sampler on the card against the CPU: a [8, vocab] draw's
+    random bits equal bit for bit, its gumbel within 2 ulp; then the
+    engine's sampler's time per call at batch 1 and 8 (CUDA events, mean
+    of 20)."""
+    from repro_torch.serve import prng
     failures = []
-    # Tolerance: reordering the attention sums alone moves these logits by
-    # several percent of their range (the plain-vs-plain noise floor
-    # above), so kernel vs plain agreement is held to 1.5x that measured
-    # floor, not bit for bit.
-    if not max(d_kp) <= 1.5 * max(d_floor):
-        failures.append(f"prefill logits differ by {max(d_kp)}, beyond 1.5x "
-                        f"the noise floor {max(d_floor)}")
-    if mismatch:
-        failures.append(f"first tokens of {mismatch} differ beyond the "
-                        "logit noise")
+    rids = torch.arange(8, dtype=torch.int32)
+    keys = prng.fold_in(prng.fold_in(
+        prng.PRNGKey(SAMPLE_SEED).expand(8, 2), rids), 3)
+    bits_cpu = prng.random_bits(keys, (vocab,))
+    bits_dev = prng.random_bits(keys.to(device), (vocab,))
+    g_cpu = prng.gumbel(keys, (vocab,))
+    g_dev = prng.gumbel(keys.to(device), (vocab,))
+    bits_equal = torch.equal(bits_dev.cpu(), bits_cpu)
+    # Within 2 f32 ulp of max(|g|, 1): near g = 0 the outer log passes its
+    # input's rounding through as an absolute error.
+    gumbel_ok = bool(((g_dev.cpu() - g_cpu).abs() <= 2 * torch.finfo(
+        torch.float32).eps * g_cpu.abs().clamp_min(1.0)).all())
+    logits = torch.randn(8, vocab, generator=torch.Generator().manual_seed(2))
+    temp = torch.tensor(TEMPERATURE)
+    draw_cpu = prng.categorical(keys, logits / temp)
+    draw_dev = prng.categorical(keys.to(device), logits.to(device)
+                                / temp.to(device)).cpu()
+    if not bits_equal:
+        failures.append("the card's random bits differ from the CPU's")
+    if not gumbel_ok:
+        failures.append("the card's gumbel is not within 2 ulp of the CPU's")
+    result = {"random_bits_equal": bits_equal, "gumbel_within_2ulp": gumbel_ok,
+              "gumbel_max_abs_diff": float((g_dev.cpu() - g_cpu).abs().max()),
+              "categorical_equal": int((draw_dev == draw_cpu).sum()),
+              "shape": [8, vocab]}
+    if device == "cuda":
+        sample = engine.make_sample(engine.plan, greedy=False)
+        key = prng.PRNGKey(SAMPLE_SEED, device=device)
+        for b in (1, 8):
+            lg = logits[:b].to(device)
+            r = torch.arange(b, dtype=torch.int32, device=device)
+            t_dev = temp.to(device)
+            for _ in range(3):
+                sample(lg, key, r, 5, t_dev)
+            a = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            a.record()
+            for _ in range(20):
+                sample(lg, key, r, 5, t_dev)
+            e.record()
+            e.synchronize()
+            result[f"sample_ms_b{b}"] = a.elapsed_time(e) / 20
+    return result, failures
+
+
+def static_path(torch, cfg, cim_ops, paged_ops, *, device="cuda",
+                chunk: int = 64, cache=None):
+    """The static engine (``Engine.generate`` over dense KV caches) at
+    ``cfg``'s widths under w8a8_kernel: the 8 serving prompts, one call
+    each (bucketed to 32), 32 new tokens, greedy with the kernels (K1 must
+    launch on every linear of every prefill and decode step), greedy with
+    the plain versions, and twice sampled with one key (identical
+    streams).  Prefill logits are gated as the main path's; the decode
+    step is timed greedy and sampled, and the sampler alone."""
+    from repro_torch.serve import Engine, prng
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    params, plan, init_s = frozen_params(torch, cfg, device, cache)
+    prompts = [torch.as_tensor(r.prompt) for r in serving_requests(torch,
+                                                                   cfg)]
+    max_len = max(PROMPT_LENS) + MAX_NEW + 32
+    eng = Engine(params, cfg, max_len=max_len, plan=plan, device=device)
+    key = prng.PRNGKey(SAMPLE_SEED, device=device)
+
+    def serve(sampled: bool):
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        sync()
+        t0 = time.perf_counter()
+        out = [eng.generate({"tokens": p[None]}, max_new_tokens=MAX_NEW,
+                            temperature=TEMPERATURE if sampled else 0.0,
+                            key=key if sampled else None, request_ids=[i])
+               for i, p in enumerate(prompts)]
+        sync()
+        wall = time.perf_counter() - t0
+        toks = [r.tokens[0].cpu() for r in out]
+        n = sum(len(t) for t in toks)
+        return toks, {"wall_s": wall, "tokens": n,
+                      "tokens_per_wall_s": n / wall,
+                      "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                                      if device == "cuda" else None)}
+
+    reset_launches(cim_ops, paged_ops)
+    greedy, run_greedy = serve(False)
+    launches = read_launches(cim_ops, paged_ops)
+    with plain_versions(cim_ops, paged_ops):
+        greedy_plain, run_plain = serve(False)
+    sampled_a, run_sampled_a = serve(True)
+    sampled_b, run_sampled_b = serve(True)
+
+    failures = []
+    # K1 on every linear: 7 per layer and the head, in the prefill and in
+    # each of the MAX_NEW decode steps of every call.
+    want_k1 = len(prompts) * (MAX_NEW + 1) * (7 * cfg.n_layers + 1)
+    if device == "cuda" and launches["cim_matmul"] != want_k1:
+        failures.append(f"K1 launched {launches['cim_matmul']} times on the "
+                        f"static path, not once per linear ({want_k1})")
+    if not all(torch.equal(a, b) for a, b in zip(sampled_a, sampled_b)):
+        failures.append("two sampled runs with one key differ")
+
+    pf_logits = {"kernel": [], "plain": [], "reorder": []}
+    prefill = eng.prefill_fn(plan)
+    for p in prompts:
+        batch = eng.bucket({"tokens": p[None].to(device)})
+        pf_logits["kernel"].append(
+            prefill(params, batch)[0][0, -1, :cfg.vocab].float())
+        with plain_versions(cim_ops, paged_ops):
+            pf_logits["plain"].append(
+                prefill(params, batch)[0][0, -1, :cfg.vocab].float())
+            # The same logits through the chunked paged prefill's gather
+            # reference: another summation order of the same attention.
+            pf_logits["reorder"].append(chunked_prefill_logits(
+                torch, params, cfg, p.numpy(),
+                dataclasses.replace(plan, paged_attn=False), chunk=chunk,
+                device=device))
+    gate, gate_failures = logit_gate(torch, pf_logits, greedy, greedy_plain)
+    failures += gate_failures
+
+    # Time of one decode step at batch 1 after the longest prompt, greedy
+    # and sampled (host clock around 16 steps, synchronized), beside the
+    # sampler alone.
+    step_ms = {}
+    batch = eng.bucket({"tokens": prompts[0][None].to(device)})
+    rids = torch.zeros(1, dtype=torch.int32, device=device)
+    temp = torch.tensor(TEMPERATURE, device=device)
+    for greedy_step in (True, False):
+        step = eng.make_step(plan, greedy_step)
+        logits, caches = prefill(params, batch)
+        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        tok, _, _, caches = step(params, tok, caches, key, rids, 1, temp)
+        sync()
+        t0 = time.perf_counter()
+        for t in range(16):
+            tok, _, _, caches = step(params, tok, caches, key, rids, t + 2,
+                                     temp)
+        sync()
+        step_ms["greedy" if greedy_step else "sampled"] = \
+            (time.perf_counter() - t0) / 16 * 1e3
+    sampler, sampler_failures = sampler_check(torch, eng, cfg.padded_vocab,
+                                              device)
+    failures += sampler_failures
+    if "sample_ms_b1" in sampler:
+        sampler["share_of_sampled_step"] = (sampler["sample_ms_b1"]
+                                            / step_ms["sampled"])
+
+    result = {"phase": "static",
+              "device": (torch.cuda.get_device_name(0) if device == "cuda"
+                         else device),
+              "layers": cfg.n_layers, "calls": len(prompts),
+              "prompt_lens": list(PROMPT_LENS), "max_new": MAX_NEW,
+              "buckets": [int(eng.bucket({"tokens": p[None]})["tokens"]
+                              .shape[1]) for p in prompts],
+              "init_s": init_s, "launches": launches,
+              "k1_launches_expected": want_k1,
+              "runs": {"greedy": run_greedy, "greedy_plain": run_plain,
+                       "sampled": run_sampled_a,
+                       "sampled_again": run_sampled_b},
+              "stream_agreement_plain": [
+                  float((a == b).float().mean()) for a, b in
+                  zip(greedy, greedy_plain)],
+              "sampled_equal_greedy": [
+                  float((a == b).float().mean()) for a, b in
+                  zip(sampled_a, greedy)],
+              **gate,
+              "decode_step_ms_b1": step_ms, "sampler": sampler}
+    result["ok"] = not failures
+    return result, launches, failures
+
+
+def blocking_path(torch, cfg, cim_ops, paged_ops, *, device="cuda",
+                  cache=None):
+    """The serving path with blocking prefill (the ContinuousEngine
+    default): the main path's requests and pool, paged attention,
+    sampled at temperature 0.8 with one key; every request must be OK and
+    K1 and K2 must launch."""
+    from repro_torch.serve import ContinuousEngine, RequestStatus, prng
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    params, plan, _ = frozen_params(torch, cfg, device, cache)
+    reqs = serving_requests(torch, cfg)
+    ce = ContinuousEngine(params, cfg, plan=plan, max_batch=8,
+                          kv_blocks=512, block_size=16, segment_len=8,
+                          paged_attn=True, chunked_prefill=False,
+                          device=device)
+    reset_launches(cim_ops, paged_ops)
+    sync()
+    t0 = time.perf_counter()
+    res = ce.run(reqs, key=prng.PRNGKey(SAMPLE_SEED, device=device),
+                 temperature=TEMPERATURE)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = read_launches(cim_ops, paged_ops)
+    ce.allocator.check_invariants()
+    failures = []
+    bad = [rid for rid, r in res.items() if r.status is not RequestStatus.OK]
+    if len(res) != len(reqs) or bad:
+        failures.append(f"blocking-prefill requests not OK: {bad}")
+    for name in ("cim_matmul", "paged_attention"):
+        if device == "cuda" and launches[name] <= 0:
+            failures.append(f"{name} never launched on the blocking path")
+    n_tok = sum(len(r.tokens) for r in res.values())
+    result = {"phase": "blocking", "layers": cfg.n_layers,
+              "requests": len(res), "ok_requests": len(res) - len(bad),
+              "tokens": n_tok, "wall_s": wall,
+              "tokens_per_wall_s": n_tok / wall,
+              "prefills": ce.last_run_prefills,
+              "prefill_s": ce.last_run_prefill_seconds,
+              "segments": ce.last_run_segments, "launches": launches,
+              "temperature": TEMPERATURE,
+              "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                              if device == "cuda" else None)}
     result["ok"] = not failures
     return result, launches, failures
 
@@ -1311,13 +1603,21 @@ def main() -> int:
     by_path = {}
     if not args.skip_main:
         from repro_torch import configs
+        qwen = dataclasses.replace(configs.get_config("qwen3-8b"),
+                                   kv_cache_dtype="int8")
+        # The three serving phases share one model, made in the first.
+        served: dict = {}
         paths = (
-            ("main", lambda: main_path(
-                torch, dataclasses.replace(configs.get_config("qwen3-8b"),
-                                           kv_cache_dtype="int8"),
-                cim_ops, paged_ops)),
+            ("main", lambda: main_path(torch, qwen, cim_ops, paged_ops,
+                                       cache=served)),
+            ("static", lambda: static_path(torch, qwen, cim_ops, paged_ops,
+                                           cache=served)),
+            ("blocking", lambda: blocking_path(torch, qwen, cim_ops,
+                                               paged_ops, cache=served)),
             ("vgg8", lambda: vgg8_path(torch, cim_ops, bs_ops, caat_ops)))
         for path, drive in paths:
+            if path == "vgg8":
+                served.clear()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             result, by_path[path], failures = drive()

@@ -1,5 +1,5 @@
-"""Carry the JAX package's parameters, KV pages, sampled chips and
-fine-tunes across to the port.
+"""Carry the JAX package's parameters, KV pages, sampler keys, sampled
+chips and fine-tunes across to the port.
 
 Inputs are the JAX trees with numpy leaves (``jax.tree.map(np.asarray,
 tree)`` on the caller's side); this module never imports JAX.  bfloat16
@@ -63,6 +63,15 @@ def pages_from_jax(pages, *, device="cpu") -> dict:
         else:
             out[name] = tensor_from_numpy(leaf, device)
     return out
+
+
+def key_from_jax(key_data, *, device="cpu") -> torch.Tensor:
+    """A JAX PRNG key's data (``np.asarray(jax.random.key_data(k))``,
+    ``uint32[..., 2]``) -> the port's sampler key (``serve/prng.py``):
+    the same two words as an int64 tensor, so draws from it equal JAX's
+    bit for bit."""
+    from repro_torch.serve import prng
+    return prng.as_key(np.asarray(key_data, dtype=np.uint32), device)
 
 
 def chip_from_jax(sample, *, device="cpu") -> dict:

@@ -1,16 +1,22 @@
-"""Serving launcher of the PyTorch port: the ``--continuous`` path of
-``repro/launch/serve.py`` with the same flags, plus ``--device``.
+"""Serving launcher of the PyTorch port: ``repro/launch/serve.py`` with
+the same flags, plus ``--device``.
 
 Usage:
+  python -m repro_torch.launch.serve --arch qwen3-8b --plan w8a8_kernel \\
+      --batch 8 --tokens 16 [--device cpu]
   python -m repro_torch.launch.serve --arch qwen3-8b --continuous \\
-      --chunked-prefill --paged-attn --plan w8a8_kernel \\
+      [--chunked-prefill] --paged-attn --plan w8a8_kernel \\
       --batch 16 --max-batch 8 --kv-blocks 128 --segment-len 8 [--device cpu]
 
 Like the JAX launcher it serves the arch's reduced config with random
-weights (seeded) on a synthetic Poisson request stream.  Flags whose
-features are not ported yet (the static mesh engine and its ``--devices``
-/ ``--mesh-shape``, page-out preemption, the prefix cache, snapshots,
-drain/restore) raise ``NotImplementedError``.
+weights (seeded).  Without ``--continuous`` it is the static engine:
+``--batch`` prompts of ``--prompt-len`` tokens drawn from
+``PRNGKey(1)`` (``serve/prng.py``, the JAX launcher's prompts), one
+prefill and greedy decode on one device.  ``--continuous`` serves a
+synthetic Poisson request stream with blocking prefill, or chunked
+prefill with ``--chunked-prefill``.  Flags whose features are not ported
+yet (more than one device, ``--mesh-shape``, page-out preemption, the
+prefix cache, snapshots, drain/restore) raise ``NotImplementedError``.
 """
 import argparse
 import time
@@ -57,11 +63,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     later = "is not ported yet (ROADMAP queue 1)"
-    if not args.continuous:
-        raise NotImplementedError(f"the static mesh engine {later}; "
-                                  "pass --continuous")
-    for flag, value in (("--devices", args.devices),
-                        ("--mesh-shape", args.mesh_shape),
+    if args.devices not in (None, 1):
+        raise NotImplementedError(f"--devices {args.devices}: more than one "
+                                  f"device {later}")
+    for flag, value in (("--mesh-shape", args.mesh_shape),
                         ("--drain-deadline", args.drain_deadline),
                         ("--restore", args.restore)):
         if value is not None:
@@ -84,6 +89,9 @@ def main(argv=None):
         plan = M.DEFAULT_DEPLOY_PLAN
     if plan is not None:
         params = M.freeze_params(params, a_scale=0.05, plan=plan)
+    tag = "plan" if args.plan is not None else args.quant
+    if not args.continuous:
+        return _static(args, cfg, params, plan, dev, tag)
 
     ce = ContinuousEngine(
         params, cfg, plan=plan, max_batch=args.max_batch,
@@ -111,9 +119,10 @@ def main(argv=None):
     n_ok = sum(r.status is RequestStatus.OK for r in res.values())
     lat = sorted(r.latency_steps for r in res.values()
                  if r.admitted_step >= 0) or [0]
-    tag = "plan" if args.plan is not None else args.quant
     attn = "paged-attn" if args.paged_attn else "gather"
-    print(f"[{tag}|continuous|{attn}|chunked-prefill:{ce.prefill_chunk}|"
+    pf = (f"chunked-prefill:{ce.prefill_chunk}" if args.chunked_prefill
+          else "blocking-prefill")
+    print(f"[{tag}|continuous|{attn}|{pf}|"
           f"preemption:{args.preemption}|{ce.device}] served {len(reqs)} "
           f"requests / {total} tokens in {dt:.2f}s ({total / dt:.1f} tok/s "
           f"incl. warm-up); {ce.last_run_segments} segments, "
@@ -131,6 +140,34 @@ def main(argv=None):
         ce.export_trace(args.trace_out)
         print(f"trace -> {args.trace_out}")
     return res
+
+
+def _static(args, cfg, params, plan, dev, tag):
+    """The static engine on one device: prefill the prompt batch, then
+    greedy decode, as the JAX launcher's mesh path does.  Returns the
+    generated tokens ``[batch, tokens]``."""
+    from repro_torch.models import model as M
+    from repro_torch.serve import prng
+
+    max_len = args.prompt_len + args.tokens + 8
+    prompts = prng.randint(prng.PRNGKey(1, device=dev),
+                           (args.batch, args.prompt_len), 0, cfg.vocab)
+    t0 = time.perf_counter()
+    logits, caches = M.prefill(params, {"tokens": prompts.long()}, cfg,
+                               max_len=max_len, mode=plan)
+    tok = torch.argmax(logits[:, -1], dim=-1)
+    out = [tok]
+    for _ in range(args.tokens - 1):
+        logits, caches = M.decode_step(params, {"tokens": tok[:, None]},
+                                       caches, cfg, mode=plan)
+        tok = torch.argmax(logits[:, -1], dim=-1)
+        out.append(tok)
+    tokens = torch.stack(out, dim=1).to(torch.int32).cpu()
+    dt = time.perf_counter() - t0
+    total = args.batch * args.tokens
+    print(f"[{tag}] served {total} tokens on 1 devices ({dev}) in "
+          f"{dt:.2f}s ({total / dt:.1f} tok/s incl. warm-up)")
+    return tokens
 
 
 if __name__ == "__main__":

@@ -10,8 +10,13 @@ Regimes:
   (``DeploymentPlan(paged_attn=True)``) runs the split-KV decode kernel.
 * ``attend_prefill_paged`` -- a causal prompt chunk over the paged pool,
   writing the chunk's K/V into its pages (in-kernel for ``impl="fused"``).
+* the dense (non-paged) KV cache of ``Engine.generate``: a prefill
+  attends its own K/V (``attend_full``) and writes the cache, a decode
+  attends the cache (``attend_decode`` / ``attend_decode_int8``).
 
-The pool is updated in place (the JAX package returns new pages).
+Caches and the pool are updated in place (the JAX package returns new
+ones).  Sliding windows and prompts over 2048 tokens
+(``attend_chunked``) are not ported yet.
 """
 from __future__ import annotations
 
@@ -234,6 +239,42 @@ def attend_prefill_paged(q, k, v, k_pages, v_pages, block_tables, pos,
     return out, k_pages, v_pages
 
 
+def _attend_dense_cache(q, k, v, kv_cache: dict) -> torch.Tensor:
+    """The dense (non-paged) KV cache: ``kv_cache`` holds ``k``/``v``
+    ``[B, S_max, KVH, D]`` (int8 codes with bf16 ``k_scale``/``v_scale``
+    ``[B, S_max, KVH]`` for an int8 cache) and ``len``, a 0-d int32 tensor
+    shared by the batch.  A prefill (S > 1) attends the in-hand K/V
+    (the cache holds nothing yet) and writes them at ``len``; a decode
+    writes one slot and attends the cache up to it.  Writes and the
+    ``len`` advance happen in place, on the device."""
+    s = q.shape[1]
+    length = kv_cache["len"]
+    idx = length.long() + torch.arange(s, device=q.device)
+    int8 = "k_scale" in kv_cache
+    if int8:
+        for name, x in (("k", k), ("v", v)):
+            codes, scale = quantize_kv(x)
+            kv_cache[name].index_copy_(1, idx, codes)
+            kv_cache[f"{name}_scale"].index_copy_(
+                1, idx, scale.to(kv_cache[f"{name}_scale"].dtype))
+    else:
+        kv_cache["k"].index_copy_(1, idx, k.to(kv_cache["k"].dtype))
+        kv_cache["v"].index_copy_(1, idx, v.to(kv_cache["v"].dtype))
+    if s > 1:
+        out = attend_full(q, k, v, causal=True)
+    else:
+        s_cache = kv_cache["k"].shape[1]
+        mask = (torch.arange(s_cache, device=q.device) < length + s)[None]
+        if int8:
+            out = attend_decode_int8(q, kv_cache["k"], kv_cache["k_scale"],
+                                     kv_cache["v"], kv_cache["v_scale"],
+                                     mask)
+        else:
+            out = attend_decode(q, kv_cache["k"], kv_cache["v"], mask)
+    length.add_(s)
+    return out
+
+
 def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """[..., H, D] -> (int8 codes, [..., H] bf16 per-token-head scales).
     The scale is rounded to its bf16 storage precision before quantizing,
@@ -253,10 +294,11 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 def attention(p: dict, x: torch.Tensor, cfg, *, kv_cache: dict | None = None,
               mode=None, chunked_threshold: int = 2048):
     """Causal self-attention layer.  Returns (output [B, S, d_model], updated
-    paged cache or None).  ``kv_cache`` is None (full-sequence forward) or
-    a paged-pool view {k, v, block_tables, lens[, write_mask, chunk_len,
-    pf_has_past]}: S == 1 decodes one token per row, S > 1 prefills a
-    chunk."""
+    cache or None).  ``kv_cache`` is None (full-sequence forward), a dense
+    cache {k, v, len[, k_scale, v_scale]} (``_attend_dense_cache``) or a
+    paged-pool view {k, v, block_tables, lens[, write_mask, chunk_len,
+    pf_has_past]}: S == 1 decodes one token per row, S > 1 prefills (a
+    whole prompt into a dense cache, a chunk into the pool)."""
     mode = mode or cfg.linear_mode
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
@@ -281,7 +323,8 @@ def attention(p: dict, x: torch.Tensor, cfg, *, kv_cache: dict | None = None,
 
     positions = torch.arange(s, device=x.device)[None, :]
     if kv_cache is not None:
-        positions = positions + kv_cache["lens"][:, None]
+        positions = positions + (kv_cache["lens"][:, None]
+                                 if "lens" in kv_cache else kv_cache["len"])
     ang = layers.rope_angles(positions, hd, cfg.rope_theta)
     q = layers.apply_rope(q, ang)
     k = layers.apply_rope(k, ang)
@@ -298,8 +341,11 @@ def attention(p: dict, x: torch.Tensor, cfg, *, kv_cache: dict | None = None,
         return out_proj(attend_full(q, k, v, causal=True)), None
 
     if "block_tables" not in kv_cache:
-        raise NotImplementedError(
-            "dense (non-paged) KV caches are not ported yet")
+        if s > chunked_threshold:
+            raise NotImplementedError(
+                f"prefill of {s} > {chunked_threshold} tokens: chunked "
+                "attention is not ported yet")
+        return out_proj(_attend_dense_cache(q, k, v, kv_cache)), kv_cache
     bt = kv_cache["block_tables"]
     lens = kv_cache["lens"]
     wm = kv_cache.get("write_mask")

@@ -5,6 +5,8 @@ paged-serving entry points of ``repro/models/model.py``).
   freeze_params(params, a_scale, plan)         -> deployed params
   forward(params, batch, cfg)                  -> (hidden, aux)
   logits_fn(params, h, cfg, mode)              -> logits (padded vocab masked)
+  prefill(params, batch, cfg, max_len)         -> (last logits, dense caches)
+  prefill_paged(params, batch, cfg, ...)       -> (last logits, pages)
   prefill_chunk(params, tokens, cfg, ...)      -> (last logits, pages)
   decode_step(params, batch, caches, cfg)      -> (logits, caches)
 """
@@ -104,6 +106,48 @@ def logits_fn(params, h, cfg, mode=None):
             >= cfg.vocab
         logits = torch.where(pad, -1e30, logits)
     return logits
+
+
+def prefill(params, batch, cfg, *, max_len: int, mode=None):
+    """Process the prompt into fresh dense caches of ``max_len`` positions
+    and return the last position's logits ``[B, 1, V]`` and the caches.
+
+    ``batch["length"]`` (optional, an int or a 0-d integer tensor) marks
+    the true prompt length when ``tokens`` is right-padded to a bucket
+    (``Engine.bucket``): logits are taken at ``length - 1`` and the write
+    cursor is rewound past the pads, so decode overwrites them and the
+    length masks exclude them.  The dense family only (the JAX package's
+    ``_prefill_stack`` for dense archs is the stack pass over the dense
+    cache, ``transformer.decode_stack``)."""
+    tokens = batch["tokens"]
+    dev = tokens.device
+    x = layers.embed(params["embed"], tokens)
+    b, s = x.shape[:2]
+    caches = transformer.init_caches(cfg, b, max_len, _dtype(cfg),
+                                     device=dev)
+    h, caches = transformer.decode_stack(params["stack"], x, cfg, caches,
+                                         mode=mode)
+    length = batch.get("length")
+    if length is None:
+        h_last = h[:, -1:]
+    else:
+        length = torch.as_tensor(length, device=dev).to(torch.int32)
+        h_last = h.index_select(1, (length.long() - 1).reshape(1))
+        caches["kv"]["len"].sub_((s - length).to(torch.int32))
+    h = layers.rmsnorm(params["final_norm"], h_last, cfg.norm_eps)
+    return logits_fn(params, h, cfg, mode), caches
+
+
+def prefill_paged(params, batch, cfg, *, pages, block_table, max_len: int,
+                  mode=None):
+    """Prefill ONE request and scatter its K/V into the pool pages (in
+    place).  The dense ``[1, max_len]`` cache built by :func:`prefill` is
+    scratch; ``block_table`` is ``[max_len // block_size]`` int32 (entries
+    past the prompt's blocks point at the null block).  Returns
+    ``(last logits, pages)``."""
+    from repro_torch.serve import kv_pool  # serve layers on models
+    logits, caches = prefill(params, batch, cfg, max_len=max_len, mode=mode)
+    return logits, kv_pool.pack_prompt(pages, caches["kv"], block_table)
 
 
 def prefill_chunk(params, tokens, cfg, *, pages, block_tables, pos, n_tok,

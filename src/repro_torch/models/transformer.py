@@ -4,8 +4,9 @@
 The JAX package stacks layers on a leading ``[L, ...]`` axis for
 ``lax.scan``; here ``params["blocks"]`` is a list of per-layer dicts and
 the stack is a Python loop.  The paged KV pool keeps its leading layer
-axis (``[L, NB, BS, KVH, D]``), and each layer works on its ``[l]`` view,
-so in-place page writes land in the shared pool.
+axis (``[L, NB, BS, KVH, D]``), as do the dense caches of
+``Engine.generate``, and each layer works on its ``[l]`` view, so in-place
+writes land in the shared tensors.
 """
 from __future__ import annotations
 
@@ -67,16 +68,44 @@ def _layer(pages, i):
     return pages[i]
 
 
+def init_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
+                device="cpu") -> dict:
+    """Zero dense caches for ``Engine.generate``: ``{"kv": {k, v, len[,
+    k_scale, v_scale]}}`` with a leading layer axis (``len`` is ``[L]``
+    int32).  An int8 cache (``cfg.kv_cache_dtype == "int8"``) stores codes
+    with bf16 per-token-head scales; otherwise the model's ``dtype``."""
+    _check_dense(cfg)
+    if cfg.sliding_window is not None:
+        raise NotImplementedError(
+            "sliding-window (ring-buffer) caches are not ported yet")
+    int8 = getattr(cfg, "kv_cache_dtype", "bf16") == "int8"
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
+             cfg.resolved_head_dim)
+    store = torch.int8 if int8 else dtype
+    kv = {"k": torch.zeros(shape, dtype=store, device=device),
+          "v": torch.zeros(shape, dtype=store, device=device),
+          "len": torch.zeros(cfg.n_layers, dtype=torch.int32, device=device)}
+    if int8:
+        for name in ("k_scale", "v_scale"):
+            kv[name] = torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                   device=device)
+    return {"kv": kv}
+
+
 def decode_stack(params, x, cfg, caches: dict, *, mode=None):
-    """Decode (S == 1) or prefill-chunk (S > 1) pass through the stack over
-    a paged pool.  ``caches["kv"]`` holds the pool ``{k, v}`` with leading
-    layer axis; block tables / lengths / write mask / chunk lengths are
-    layer-invariant.  Pages are updated in place; returns (hidden,
-    caches)."""
+    """Decode (S == 1) or prefill (S > 1) pass through the stack over a
+    paged pool or a dense cache.  ``caches["kv"]`` holds the pool ``{k,
+    v}`` or the dense cache ``{k, v, len[, k_scale, v_scale]}``, each with
+    a leading layer axis; a pool's block tables / lengths / write mask /
+    chunk lengths are layer-invariant.  Caches are updated in place;
+    returns (hidden, caches)."""
     _check_dense(cfg)
     if "block_tables" not in caches:
-        raise NotImplementedError(
-            "dense (non-paged) KV caches are not ported yet")
+        kv = caches["kv"]
+        for i, blk in enumerate(params["blocks"]):
+            x, _ = dense_block(blk, x, cfg, mode=mode,
+                               cache={name: t[i] for name, t in kv.items()})
+        return x, caches
     shared = {key: caches[key]
               for key in ("block_tables", "lens", "write_mask", "chunk_len",
                           "pf_has_past")

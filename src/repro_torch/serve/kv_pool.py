@@ -12,6 +12,7 @@
   the reserved **null block**: masked writes and the padding tail of every
   block table point there, so device shapes stay static.
 
+``pack_prompt`` scatters a blocking prefill's dense cache into the pages.
 Host spill, block copy/extract/insert and snapshots arrive with the
 durability slice.
 """
@@ -99,6 +100,31 @@ def pages_block_size(pages) -> int:
 def pages_num_blocks(pages) -> int:
     k = pages["k"]
     return (k.q if isinstance(k, quant.QTensor) else k).shape[1]
+
+
+def pack_prompt(pages, dense_kv, block_table):
+    """Scatter a one-request dense prefill cache into the pool pages, in
+    place.  ``dense_kv`` is ``model.prefill``'s ``caches["kv"]`` for a
+    batch of ONE: k/v ``[L, 1, S, KVH, HD]`` (+ ``k_scale``/``v_scale``
+    ``[L, 1, S, KVH]`` for the int8 cache), S a block_size multiple.
+    ``block_table`` is ``[S // block_size]`` int32; entries past the
+    request's prompt blocks point at the null block (they hold only
+    bucket padding).  Returns the pages."""
+    bs = pages_block_size(pages)
+    bt = torch.as_tensor(block_table, device=dense_kv["k"].device).long()
+
+    def chunk(a):
+        lyr, _, s = a.shape[:3]
+        return a.reshape(lyr, s // bs, bs, *a.shape[3:])
+
+    for name in ("k", "v"):
+        page = pages[name]
+        if isinstance(page, quant.QTensor):
+            page.q[:, bt] = chunk(dense_kv[name])
+            page.scale[:, bt] = chunk(dense_kv[f"{name}_scale"][..., None])
+        else:
+            page[:, bt] = chunk(dense_kv[name]).to(page.dtype)
+    return pages
 
 
 def apply_defrag(pages, block_tables, remap: dict[int, int]):

@@ -1,5 +1,6 @@
-"""Continuous-batching serve driver over the paged KV pool (port of the
-chunked-prefill path of ``repro/serve/server.py``).
+"""Continuous-batching serve driver over the paged KV pool (port of
+``repro/serve/server.py``: blocking and chunked prefill, greedy and seeded
+sampling).
 
 ``ContinuousEngine.run`` is a synchronous traffic simulator with real
 model execution: requests carry an ``arrival_step`` (sim time in decode
@@ -8,7 +9,14 @@ retire the moment they emit a stop token or reach ``max_new``.
 
 Execution shape:
 
-* **Chunked prefill** -- admission dispatches nothing.  Each PREFILL row
+* **Blocking prefill** (the default) -- one call per admitted request:
+  ``model.prefill_paged`` runs the bucketed prompt forward into a dense
+  scratch cache, scatters its K/V into the request's pool blocks
+  (``kv_pool.pack_prompt``) and samples the first token with the
+  request-id-folded key.  An admission round joins with one batched
+  device-to-host read of the first tokens.
+* **Chunked prefill** (``chunked_prefill=True``) -- admission dispatches
+  nothing.  Each PREFILL row
   advances ``prefill_chunk`` prompt tokens per segment inside the same
   segment as the decoding rows: a pow2-bucketed sub-batch of prefilling
   rows runs ``model.prefill_chunk``, whose causal chunk attends past pool
@@ -28,6 +36,10 @@ Execution shape:
 * **Lifecycle** -- deadlines, :meth:`ContinuousEngine.cancel`, a bounded
   queue (``max_queue``) and the non-finite-logits guard retire requests as
   TIMEOUT / CANCELLED / SHED / FAILED with all blocks returned.
+* **Seeded sampling** -- ``run(key=..., temperature=...)`` samples each
+  row with ``fold_in(fold_in(key, rid), step)`` (``serve/prng.py``), so a
+  request's stream is independent of its batch neighbours and equal to
+  the JAX engine's at the same key.
 
 Idle and finished rows still occupy compute lanes within a segment; their
 page writes are masked to the null block and their outputs discarded.
@@ -35,9 +47,9 @@ Each segment hands the device only the pow2-bucketed live-width prefix of
 the block tables, and the engine defrags adaptively so tables stay
 contiguous.
 
-Not ported yet (they raise ``NotImplementedError``): blocking prefill
-(``chunked_prefill=False``), page-out preemption, the prefix cache,
-snapshot/restore/drain and fault injection.
+Not ported yet (they raise ``NotImplementedError``): page-out
+preemption, the prefix cache, snapshot/restore/drain and fault
+injection.
 """
 from __future__ import annotations
 
@@ -52,7 +64,7 @@ from repro_torch import device as device_lib
 from repro_torch.core import backend as backend_lib
 from repro_torch.kernels import autotune
 from repro_torch.models import model as model_lib
-from repro_torch.serve import kv_pool
+from repro_torch.serve import kv_pool, prng
 from repro_torch.serve import telemetry as telemetry_lib
 from repro_torch.serve.engine import Engine
 from repro_torch.serve.scheduler import (Request, RequestStatus,
@@ -89,6 +101,8 @@ class _RunState:
     """Everything one serve run owns besides the device pages."""
     sched: Scheduler
     greedy: bool
+    rng: torch.Tensor             # the run's sampler key (serve/prng.py)
+    temperature: float
     tok: np.ndarray               # [mb] pending (sampled, unemitted) token
     n_out: np.ndarray             # [mb] emitted counts (post-harvest)
     lens: np.ndarray              # [mb] cache positions written
@@ -108,7 +122,7 @@ class ContinuousEngine:
     def __init__(self, params, cfg, *, plan=None, mode=None,
                  max_batch: int = 8, kv_blocks: int = 64,
                  block_size: int = 16, max_blocks_per_req: int | None = None,
-                 segment_len: int = 8,
+                 segment_len: int = 8, seq_bucket: int = 32,
                  defrag_interval: int | None = None,
                  defrag_threshold: float | None = 0.5,
                  defrag_min_holes: int = 4,
@@ -133,9 +147,6 @@ class ContinuousEngine:
         if preemption not in ("off", "recompute", "page_out"):
             raise ValueError("preemption must be 'off', 'recompute' or "
                              f"'page_out', got {preemption!r}")
-        if not chunked_prefill:
-            raise NotImplementedError(
-                f"blocking prefill (chunked_prefill=False) {_LATER}")
         if preemption == "page_out":
             raise NotImplementedError(f"preemption='page_out' {_LATER}")
         if prefix_cache:
@@ -177,7 +188,11 @@ class ContinuousEngine:
         self.max_blocks_per_req = (kv_blocks - 1 if max_blocks_per_req is None
                                    else max_blocks_per_req)
         self.max_seq_len = self.max_blocks_per_req * block_size
-        self.engine = Engine(params, cfg, plan=plan)
+        # The inner engine's max_len bounds blocking prefill's prompt
+        # buckets, as in the JAX package.
+        self.engine = Engine(params, cfg, max_len=self.max_seq_len,
+                             plan=plan, seq_bucket=seq_bucket,
+                             device=self.device)
         self.allocator = kv_pool.BlockAllocator(kv_blocks)
         dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
         self.pages = kv_pool.init_pages(cfg, kv_blocks, block_size, dtype,
@@ -378,9 +393,8 @@ class ContinuousEngine:
                     f"{r.max_new} exceeds max_blocks_per_req * block_size "
                     f"= {self.max_seq_len}")
         greedy = temperature <= 0 or key is None
-        if not greedy:
-            from repro_torch.serve.engine import SEEDED_SAMPLING_TODO
-            raise NotImplementedError(SEEDED_SAMPLING_TODO)
+        rng = (prng.PRNGKey(0, device=self.device) if key is None
+               else prng.as_key(key, self.device))
         stop_w = max((len(r.stop_tokens) for r in requests), default=0) or 1
         self._cancel_req = set()
         self.telemetry.reset_run()
@@ -392,7 +406,9 @@ class ContinuousEngine:
             sched.submit(r)
         mb, nbr = self.max_batch, self.max_blocks_per_req
         st = _RunState(
-            sched=sched, greedy=greedy, tok=np.zeros(mb, np.int32), n_out=np.zeros(mb, np.int32),
+            sched=sched, greedy=greedy, rng=rng,
+            temperature=float(temperature), tok=np.zeros(mb, np.int32),
+            n_out=np.zeros(mb, np.int32),
             lens=np.zeros(mb, np.int32), done=np.ones(mb, bool),
             rids=np.zeros(mb, np.int32), max_new=np.zeros(mb, np.int32),
             stops=np.full((mb, stop_w), -1, np.int32),
@@ -506,6 +522,10 @@ class ContinuousEngine:
         plan = self.plan
         greedy = st.greedy
         dev = self.device
+        rng = st.rng
+        temp = torch.tensor(max(st.temperature, 1e-6), dtype=torch.float32,
+                            device=dev)
+        chunked = self.chunked_prefill
         pad = -1
         seg_fn = self._segment_fn(plan, greedy, self.segment_len)
         tok, n_out, lens, done = st.tok, st.n_out, st.lens, st.done
@@ -580,7 +600,10 @@ class ContinuousEngine:
                   >= self.defrag_threshold):
                 tables = st.tables = self._maybe_defrag(sched, tables, now)
 
-            # ---- admission: chunked prefill dispatches nothing here ----
+            # ---- admission: blocking prefill runs here; chunked prefill
+            # dispatches nothing until the segment ----
+            pending_tok0: list[tuple[ScheduledRequest, torch.Tensor]] = []
+            pf_wall = 0.0
             for sr in sched.admit_ready(now):
                 row, req = sr.row, sr.req
                 rids[row] = req.rid
@@ -600,16 +623,42 @@ class ContinuousEngine:
                 self.tracer.request_point(
                     req.rid, "resume" if sr.n_preempt > 0 else "admit",
                     step=now, row=row, blocks=len(sr.blocks))
-                # The (possibly resumed) prompt streams into the pool chunk
-                # by chunk; the row idles in the decode loop (done) until
-                # its final chunk samples the pending token.
-                sr.pf_written = sr.pf_start
-                sr.ctx_len = sr.pf_start
-                lens[row] = 0
-                done[row] = True
-                tok[row] = 0
+                if chunked:
+                    # The (possibly resumed) prompt streams into the pool
+                    # chunk by chunk; the row idles in the decode loop
+                    # (done) until its final chunk samples the pending
+                    # token.
+                    sr.pf_written = sr.pf_start
+                    sr.ctx_len = sr.pf_start
+                    lens[row] = 0
+                    done[row] = True
+                    tok[row] = 0
+                else:
+                    lens[row] = sr.cur_prompt_len
+                    done[row] = False
+                    t0 = time.perf_counter()
+                    ta = self.tracer.now()
+                    pending_tok0.append(
+                        (sr, self._admit(sr, plan, greedy, rng, temp)))
+                    pf_wall += time.perf_counter() - t0
+                    self.tracer.span(
+                        "admit_prefill", ta, self.tracer.now(),
+                        cat="prefill", args={"step": now, "rid": req.rid})
                 yield {"event": "admit", "rid": req.rid, "step": now,
                        "recompute": sr.n_preempt > 0}
+            if pending_tok0:
+                # One device-to-host read for the whole admission round.
+                t0 = time.perf_counter()
+                ta = self.tracer.now()
+                vals = torch.cat([t for _, t in pending_tok0]).cpu().numpy()
+                self.metrics.counter("serve_host_syncs_total").inc()
+                for (sr, _), v in zip(pending_tok0, vals):
+                    tok[sr.row] = int(v)
+                self.metrics.counter("serve_prefill_seconds_total").inc(
+                    pf_wall + (time.perf_counter() - t0))
+                self.tracer.span(
+                    "admit_join", ta, self.tracer.now(), cat="prefill",
+                    args={"step": now, "n_requests": len(pending_tok0)})
             self.metrics.gauge("serve_max_concurrency").set_max(
                 len(sched.running))
             stats = self.allocator.stats()
@@ -658,7 +707,7 @@ class ContinuousEngine:
                 if sched.running.get(sr.row) is not sr:
                     continue
                 target = None
-                if sr.state is State.PREFILL:
+                if chunked and sr.state is State.PREFILL:
                     cnt = min(chunk, sr.cur_prompt_len - sr.pf_written)
                     fin = sr.pf_written + cnt >= sr.cur_prompt_len
                     span = sr.pf_written + chunk
@@ -683,7 +732,7 @@ class ContinuousEngine:
                 continue
 
             pf_rows: list[tuple[int, ScheduledRequest, int, bool]] = []
-            for row, sr in sched.running.items():
+            for row, sr in (sched.running.items() if chunked else ()):
                 if sr.state is State.PREFILL:
                     cnt = min(chunk, sr.cur_prompt_len - sr.pf_written)
                     fin = sr.pf_written + cnt >= sr.cur_prompt_len
@@ -729,13 +778,13 @@ class ContinuousEngine:
                     on_dev(pf_idx), on_dev(pf_tables), on_dev(pf_tok),
                     on_dev(pf_pos), on_dev(pf_cnt), on_dev(pf_on),
                     on_dev(pf_fin), on_dev(pf_t0), *rest,
-                    poison_v, None, 0.0, pad, name="mixed_segment")
+                    poison_v, rng, temp, pad, name="mixed_segment")
                 self.metrics.counter("serve_prefill_chunks_total").inc(
                     len(pf_rows))
             else:
                 outs = self._dispatch(
                     seg_fn, self.params, self.pages, *row_state, poison_v,
-                    None, 0.0, pad, name="decode_segment")
+                    rng, temp, pad, name="decode_segment")
             (pages, tok_d, n_out_d, lens_d, done_d, failed_d, out_t,
              out_lp, i_exec) = outs
             self.pages = pages
@@ -766,7 +815,7 @@ class ContinuousEngine:
                     written=sr.pf_written, final=fin)
 
             for row, sr in list(sched.running.items()):
-                if sr.state is State.PREFILL \
+                if chunked and sr.state is State.PREFILL \
                         and sr.pf_written < sr.cur_prompt_len:
                     continue
                 cnt = int(n_out_new[row]) - sr.n_out
@@ -832,10 +881,45 @@ class ContinuousEngine:
                            "step": sr.finished_step, "result": result}
             now += int(i_exec)
 
+    # ---------------------------------------------------------------- admit
+
+    def _admit(self, sr: ScheduledRequest, plan, greedy, rng, temp):
+        """Blocking-prefill admission: the bucketed prompt (a recompute
+        re-admission's prompt plus its generated tokens) forward into a
+        dense scratch cache of whole blocks, packed into the pool, and its
+        first sample at step ``sr.n_out`` -- the (key, rid, step) triple
+        the token had before any preemption.  Returns the device's first
+        token ``[1]``; the caller joins one admission round with one
+        read."""
+        prompt = torch.as_tensor(np.asarray(sr.cur_prompt, np.int64),
+                                 device=self.device)[None]
+        batch = self.engine.bucket({"tokens": prompt})
+        n_blocks = kv_pool.blocks_for(int(batch["tokens"].shape[1]),
+                                      self.block_size)
+        bt_pf = np.zeros(n_blocks, np.int32)
+        bt_pf[:len(sr.blocks)] = sr.blocks
+        sample = self.engine.make_sample(plan, greedy)
+
+        def prefill(params, pages, block_table, rid):
+            logits, pages = model_lib.prefill_paged(
+                params, batch, self.cfg, pages=pages,
+                block_table=block_table,
+                max_len=n_blocks * self.block_size, mode=plan)
+            return sample(logits[:, -1], rng, rid, sr.n_out, temp), pages
+
+        tok0, self.pages = self._dispatch(
+            prefill, self.params, self.pages,
+            torch.as_tensor(bt_pf, device=self.device),
+            torch.tensor([sr.req.rid], dtype=torch.int32,
+                         device=self.device), name="prefill")
+        self.metrics.counter("serve_prefills_total").inc()
+        return tok0
+
 
 # Run stats as read-only views of the metrics registry.
 _RUN_METRIC_ATTRS = {
     "last_run_segments": "serve_segments_total",
+    "last_run_prefills": "serve_prefills_total",
     "last_run_prefill_chunks": "serve_prefill_chunks_total",
     "last_run_dispatches": "serve_dispatches_total",
     "last_run_host_syncs": "serve_host_syncs_total",
@@ -847,6 +931,7 @@ _RUN_METRIC_ATTRS = {
     "last_run_cancels": "serve_cancels_total",
     "last_run_failed": "serve_failed_total",
     "last_run_max_concurrency": "serve_max_concurrency",
+    "last_run_prefill_seconds": "serve_prefill_seconds_total",
 }
 
 

@@ -55,7 +55,7 @@ def test_no_source_names_the_jax_package():
 
 
 @pytest.mark.parametrize("entry", ["init", "pages", "engine", "launch",
-                                   "fig10"])
+                                   "fig10", "static_engine"])
 def test_entry_points_default_to_cuda(entry):
     """Without device='cpu' an entry point raises on a machine without
     CUDA (on a machine with a card there is nothing to check here)."""
@@ -78,6 +78,11 @@ def test_entry_points_default_to_cuda(entry):
             params = M.init(cfg, torch.Generator().manual_seed(0),
                             device="cpu")
             ContinuousEngine(params, cfg, chunked_prefill=True)
+        elif entry == "static_engine":
+            from repro_torch.serve import Engine
+            params = M.init(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+            Engine(params, cfg)
         else:
             launch.main(["--arch", "qwen3-8b", "--continuous",
                          "--chunked-prefill"])
@@ -161,9 +166,16 @@ def test_launcher_serves_on_cpu():
     assert len(res) == 3
     assert all(r.status is RequestStatus.OK and len(r.tokens) == 4
                for r in res.values())
-    with pytest.raises(NotImplementedError, match="static mesh"):
-        launch.main(["--arch", "qwen3-8b", "--device", "cpu"])
-    for flag, value in (("--devices", "1"), ("--mesh-shape", "1,1")):
+    res = launch.main(["--arch", "qwen3-8b", "--continuous", "--paged-attn",
+                       "--plan", "w8a8_kernel", "--device", "cpu",
+                       "--batch", "2", "--tokens", "3"])
+    assert all(r.status is RequestStatus.OK and len(r.tokens) == 3
+               for r in res.values())
+    toks = launch.main(["--arch", "qwen3-8b", "--plan", "w8a8_kernel",
+                        "--device", "cpu", "--devices", "1", "--batch", "2",
+                        "--tokens", "3"])
+    assert tuple(toks.shape) == (2, 3)
+    for flag, value in (("--devices", "2"), ("--mesh-shape", "1,1")):
         with pytest.raises(NotImplementedError, match=flag):
             launch.main(["--arch", "qwen3-8b", "--continuous", "--device",
                          "cpu", flag, value])

@@ -292,3 +292,84 @@ def test_caat_mac_kernel_rejects_ragged_rows(hopper):
         a, w, macro.ideal_chip(cfg, "cuda"), 1e4, cfg)
     with pytest.raises(ValueError, match="multiple of 16"):
         caat_ops.caat_mac_kernel(*tiles[0], w_eff, scalars)
+
+
+# ---------------------------------------------------------------------------
+# Served streams: the kernels against their plain versions end to end
+# ---------------------------------------------------------------------------
+
+def _served_model():
+    """A reduced qwen3-8b (2 layers, d_model 256, head_dim 64: the decode
+    and prefill kernels take D in {32, ..., 256}) with an int8 KV cache,
+    random weights from seed 0 frozen under w8a8_kernel on the card.  Its
+    f32 reordering noise is far below its top-2 logit margins, so greedy
+    streams must be identical; the plain path is held against the JAX
+    package on the CPU (test_torch_serve*.py, test_torch_engine.py)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.core import backend
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(
+        configs.reduced_config("qwen3-8b", n_layers=2, d_model=256),
+        head_dim=64, kv_cache_dtype="int8")
+    plan = backend.load_plan("w8a8_kernel")
+    params = M.freeze_params(
+        M.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+               device="cuda"), a_scale=0.05, plan=plan)
+    return cfg, plan, params
+
+
+def _plain_versions(monkeypatch):
+    monkeypatch.setattr(cim_ops, "cim_matmul_kernel",
+                        cim_ops.cim_matmul_plain)
+    monkeypatch.setattr(tops, "paged_attention_kernel",
+                        tops.paged_attention_plain)
+    monkeypatch.setattr(tops, "merge_splits_kernel", tops.merge_splits)
+    monkeypatch.setattr(tops, "flash_prefill_kernel",
+                        tops.flash_prefill_plain)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["chunked", "blocking", "generate"])
+def test_served_streams_match_plain(hopper, path, monkeypatch):
+    """Greedy streams served through the kernels equal those served
+    through their plain versions: chunked and blocking ContinuousEngine
+    (K1, K2, K3 / K1, K2) and Engine.generate (K1)."""
+    import numpy as np
+
+    from repro_torch.serve import ContinuousEngine, Engine, Request
+    cfg, plan, params = _served_model()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, int(n)) for n in (37, 5, 60, 21,
+                                                            44, 16)]
+
+    def serve():
+        if path == "generate":
+            eng = Engine(params, cfg, max_len=96, plan=plan, device="cuda")
+            batch = np.stack([p[:21] for p in prompts[::2]])
+            return [eng.generate({"tokens": batch},
+                                 max_new_tokens=12).tokens.cpu(),
+                    eng.generate({"tokens": prompts[2][None]},
+                                 max_new_tokens=12).tokens.cpu()]
+        ce = ContinuousEngine(params, cfg, plan=plan, max_batch=4,
+                              kv_blocks=64, block_size=16, segment_len=4,
+                              paged_attn=True,
+                              chunked_prefill=path == "chunked",
+                              prefill_chunk=32, device="cuda")
+        res = ce.run([Request(rid=i, prompt=p, max_new=12,
+                              arrival_step=2 * i)
+                      for i, p in enumerate(prompts)])
+        return [torch.as_tensor(res[i].tokens) for i in range(len(prompts))]
+
+    cim_ops.launches = tops.decode_launches = tops.prefill_launches = 0
+    got = serve()
+    assert cim_ops.launches > 0
+    if path != "generate":
+        assert tops.decode_launches > 0
+    if path == "chunked":
+        assert tops.prefill_launches > 0
+    _plain_versions(monkeypatch)
+    want = serve()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

@@ -1,7 +1,8 @@
 """Port parity: the PyTorch ContinuousEngine against the JAX package's on
-the same Request lists (greedy, chunked prefill over the paged pool), with
-identical token streams, identical statuses, and the allocator drained
-full at the end of every run."""
+the same Request lists (chunked and blocking prefill over the paged pool,
+greedy and sampled at a fixed key), with identical token streams,
+identical statuses, and the allocator drained full at the end of every
+run."""
 import dataclasses
 
 import jax
@@ -54,8 +55,12 @@ def _specs(cfg, n=5, seed=0, arrivals=(0, 0, 2, 5, 6)):
             for i in range(n)]
 
 
-def _run_both(master, plan_name, int8, specs=None, jax_plan=None, **kw):
+def _run_both(master, plan_name, int8, specs=None, jax_plan=None,
+              run_kw=None, **kw):
+    """Serve ``specs`` through both engines; ``run_kw`` holds each
+    package's ``run`` arguments (``{"jax": {...}, "torch": {...}}``)."""
     cfg, tc, jplan, tplan, jp, tp = _pair(master, plan_name, int8, jax_plan)
+    run_kw = run_kw or {"jax": {}, "torch": {}}
     specs = specs if specs is not None else _specs(cfg)
     kw = dict(dict(max_batch=3, kv_blocks=40, block_size=4,
                    max_blocks_per_req=16, segment_len=4,
@@ -63,8 +68,8 @@ def _run_both(master, plan_name, int8, specs=None, jax_plan=None, **kw):
               **kw)
     je = JEngine(jp, cfg, plan=jplan, **kw)
     te = TEngine(tp, tc, plan=tplan, device="cpu", **kw)
-    jr = je.run([JRequest(**s) for s in specs])
-    tr = te.run([TRequest(**s) for s in specs])
+    jr = je.run([JRequest(**s) for s in specs], **run_kw["jax"])
+    tr = te.run([TRequest(**s) for s in specs], **run_kw["torch"])
     te.allocator.check_invariants()
     assert te.allocator.free_blocks == te.allocator.capacity
     return je, te, jr, tr
@@ -84,3 +89,4 @@ def test_streams_identical_to_jax(master, plan_name, int8, jax_plan):
                                    rtol=1e-4, atol=1e-4)
     assert te.last_run_segments == je.last_run_segments
     assert te.last_run_prefill_chunks == je.last_run_prefill_chunks
+

@@ -1,7 +1,8 @@
 """Port parity of the PyTorch ContinuousEngine's lifecycle against the
 JAX package's: recompute preemption, worst-case reservation with stop
 tokens, TIMEOUT / SHED / CANCELLED retirement, and the modes not ported
-yet raising NotImplementedError."""
+yet (page-out, the prefix cache, snapshots, fault injection) raising
+NotImplementedError."""
 import numpy as np
 import pytest
 
@@ -74,7 +75,6 @@ def test_lifecycle_statuses(master):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(chunked_prefill=False), "blocking prefill"),
     (dict(preemption="page_out"), "page_out"),
     (dict(prefix_cache=True), "prefix_cache"),
     (dict(snapshot_dir="snaps"), "snapshots")])
@@ -85,13 +85,11 @@ def test_unported_modes_raise(master, kw, match):
         TEngine(tp, tc, **args)
 
 
-def test_seeded_sampling_and_faults_raise(master):
+def test_fault_injection_raises(master):
     cfg, tc, jplan, tplan, jp, tp = _pair(master, "exact", False)
     te = TEngine(tp, tc, chunked_prefill=True, device="cpu", kv_blocks=16,
                  block_size=4)
     reqs = [TRequest(rid=1, prompt=[1, 2, 3], max_new=2)]
-    with pytest.raises(NotImplementedError, match="seeded sampling"):
-        te.run(reqs, temperature=0.8, key=object())
     with pytest.raises(NotImplementedError, match="fault injection"):
         te.run(reqs, faults=object())
     assert te.run(reqs)[1].status is RequestStatus.OK
