@@ -44,14 +44,26 @@ Phases (each prints one JSON line; any failure exits non-zero):
 6. blocking -- the serving path with blocking prefill (the engine's
                default), paged attention, sampled at temperature 0.8:
                every request OK, K1 and K2 launched.
-7. vgg8     -- the paper's VGG-8 deployment path (repro_torch.launch.fig10)
+7. durable  -- the prefix cache, page-out preemption and drain/restore on
+               the same model, greedy: 8 requests sharing a 256-token
+               system prompt (two repeating another whole), uncached and
+               cached, blocking and chunked (hits, copy-on-write copies,
+               suffix prefills through K3; blocking first tokens gated by
+               the main phase's logit rule, chunked streams equal);
+               a page-out storm on a pool 8 blocks short (streams equal
+               the unpressured run's); a drain into a snapshot in a
+               temporary directory, restored into a fresh engine and
+               resumed (streams equal the uninterrupted run's; snapshot
+               bytes, save and restore seconds).  K3 is also held against
+               its plain version at the suffix-prefill shapes in phase 3.
+8. vgg8     -- the paper's VGG-8 deployment path (repro_torch.launch.fig10)
                at its published widths with random weights from a seed:
                w8a8_kernel (with and without residency) and
                bitserial_kernel logits bit-identical to their plain plans,
                the cim plan with 8 sampled chips, calibrated full scales
                and per-channel fine-tunes, and the CAAT macro op on every
                cim layer's int8 inputs against the behavioural simulation.
-8. the ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
+9. the ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 ``--skip-main`` stops after the kernel phase (a quick kernel check).
@@ -400,8 +412,12 @@ def _dense_kv(torch, pages, scale, tables, n_tokens):
 def check_k2(torch, timer, ops, gen):
     """paged_attention against its plain version, bf16 and int8 pools,
     B=8 ragged lengths up to 2048 with one empty row, at kv_splits=1 (the
-    count the decode kernel was first timed at) and at the card's split
-    count (what the main path runs)."""
+    count the decode kernel was first timed at), at the card's split
+    count (a caller without an engine) and at the pages per split a
+    serving engine fixes for a 200-page widest table (the serve loop's
+    decode).  Also times kernel + merge over a grid of table widths and
+    batches, the per-width split heuristic beside an engine's fixed pages
+    per split (:func:`split_sweep`)."""
     from repro_torch.kernels import autotune
     b, kvh, g, d, bs = 8, 8, 4, 128, 16
     lengths = torch.tensor([2048, 1, 777, 0, 1500, 64, 1999, 300],
@@ -409,6 +425,8 @@ def check_k2(torch, timer, ops, gen):
     w = 2048 // bs
     card_splits = autotune.heuristic_paged_splits_cuda(
         b, kvh, w, ops.sm_count("cuda"))
+    engine_pps = autotune.paged_split_pages(b, kvh, 200,
+                                            ops.sm_count("cuda"))
     nb = b * w + 1
     perm = torch.randperm(nb - 1, generator=gen, device="cuda") + 1
     tables = perm[:b * w].reshape(b, w).to(torch.int32).contiguous()
@@ -419,16 +437,17 @@ def check_k2(torch, timer, ops, gen):
     for int8 in (False, True):
         (kp, vp), (ks, vs) = _pool(torch, gen, nb, bs, kvh, d, int8)
         args = (q, kp, vp, ks, vs, tables, lengths)
-        for splits in (1, card_splits):
+        for split in ({"kv_splits": 1}, {"kv_splits": card_splits},
+                      {"split_pages": engine_pps}):
             got = ops.merge_splits(*ops.paged_attention_kernel(
-                *args, kv_splits=splits))
+                *args, **split))
             want = ops.merge_splits(*ops.paged_attention_plain(
-                *args, kv_splits=splits))
+                *args, **split))
             e = (got - want).abs().max().item()
             # f32 sums in another order than the plain version's einsum.
             if not e <= 1e-3:
-                raise AssertionError(f"K2 int8={int8} splits={splits}: max "
-                                     f"abs err {e} > 1e-3")
+                raise AssertionError(f"K2 int8={int8} {split}: max abs err "
+                                     f"{e} > 1e-3")
             if got[3].abs().max().item() != 0.0:
                 raise AssertionError("K2: the n_valid=0 row is not zeros")
             err = max(err, e)
@@ -466,7 +485,44 @@ def check_k2(torch, timer, ops, gen):
                      "library": "scaled_dot_product_attention over the "
                                 "gathered dequantized pages"}
     entry["max_abs_err"] = err
+    entry["split_sweep"] = split_sweep(torch, timer, ops, gen)
     return entry
+
+
+def split_sweep(torch, timer, ops, gen, max_width: int = 512):
+    """K2 + merge (both kernels) on full int8 tables of 4 to 512 pages at
+    batch 1 and 8 (KVH=8, G=4, D=128, BS=16): the per-width split
+    heuristic beside the pages per split an engine whose widest table is
+    ``max_width`` pages fixes, which a row's bits do not depend on."""
+    from repro_torch.kernels import autotune
+    kvh, g, d, bs = 8, 4, 128, 16
+    sms = ops.sm_count("cuda")
+    rows = []
+    for b in (1, 8):
+        pps = autotune.paged_split_pages(b, kvh, max_width, sms)
+        for w in (4, 32, 128, 512):
+            nb = b * w + 1
+            perm = torch.randperm(nb - 1, generator=gen, device="cuda") + 1
+            tables = perm.reshape(b, w).to(torch.int32).contiguous()
+            lengths = torch.full((b,), w * bs, dtype=torch.int32,
+                                 device="cuda")
+            (kp, vp), (ks, vs) = _pool(torch, gen, nb, bs, kvh, d, True)
+            q = torch.randn(b, kvh, g, d, generator=gen, device="cuda").to(
+                torch.bfloat16)
+            args = (q, kp, vp, ks, vs, tables, lengths)
+            row = {"batch": b, "width": w}
+            for tag, split in (
+                    ("heuristic", {"kv_splits": autotune
+                                   .heuristic_paged_splits_cuda(
+                                       b, kvh, w, sms)}),
+                    ("engine", {"split_pages": pps})):
+                row[f"{tag}_splits"] = ops.split_geometry(w, **split)[0]
+                row[f"{tag}_ms"] = timer.ms(
+                    lambda: ops.merge_splits_kernel(
+                        *ops.paged_attention_kernel(*args, **split)))
+            rows.append(row)
+            del kp, vp, ks, vs
+    return {"max_width": max_width, "rows": rows}
 
 
 def check_merge(torch, timer, ops, gen):
@@ -509,7 +565,8 @@ def check_merge(torch, timer, ops, gen):
 
 def check_k3(torch, timer, ops, gen):
     """flash_prefill against its plain version at C=64: outputs within
-    1e-3, written pages bit-exact, the masked row's pages untouched."""
+    1e-3, written pages bit-exact, the masked row's pages untouched; then
+    at the suffix-prefill shapes (:func:`k3_suffix_cases`)."""
     b, kvh, g, d, bs, c = 4, 8, 4, 128, 16, 64
     pos = torch.tensor([0, 64, 1024, 64], dtype=torch.int32, device="cuda")
     n_tok = torch.tensor([64, 37, 64, 64], dtype=torch.int32, device="cuda")
@@ -562,54 +619,126 @@ def check_k3(torch, timer, ops, gen):
         if int8 and dtype == torch.bfloat16:
             args = (q, k_new, v_new, k1, v1, ks1, vs1, tables, pos, n_tok,
                     wm)
-            ms = timer.ms(lambda: ops.flash_prefill_kernel(*args))
-            plain_ms = timer.ms(lambda: ops.flash_prefill_plain(*args),
-                                iters=5)
-            # Yardstick: SDPA of each row over its gathered past + chunk.
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            calls = []
-            for r in range(b):
-                p0 = int(pos[r])
-                past_k = _dense_kv(torch, k1, ks1, tables[r:r + 1], p0)
-                past_v = _dense_kv(torch, v1, vs1, tables[r:r + 1], p0)
-                kk = torch.cat([past_k, k_new[r:r + 1].float()], 1)
-                vv = torch.cat([past_v, v_new[r:r + 1].float()], 1)
-                kk = kk.permute(0, 2, 1, 3).repeat_interleave(g, 1)
-                vv = vv.permute(0, 2, 1, 3).repeat_interleave(g, 1)
-                qq = q[r].reshape(kvh, c, g, d).permute(0, 2, 1, 3).reshape(
-                    1, kvh * g, c, d).float()
-                mask = (torch.arange(p0 + c, device="cuda")[None, :]
-                        <= p0 + torch.arange(c, device="cuda")[:, None])
-                calls.append((qq, kk, vv, mask))
-            library_ms = timer.ms(
-                lambda: [sdpa(qq, kk, vv, attn_mask=mk)
-                         for qq, kk, vv, mk in calls])
-            n_ops = 0.0
-            n_bytes = (q.numel() * 2 * 2 + k_new.numel() * 2 * 2
-                       + tables.numel() * 4)
-            for r in range(b):
-                p0, nt = int(pos[r]), int(n_tok[r])
-                keys = sum(p0 + min(ci + 1, nt) for ci in range(c))
-                n_ops += 4.0 * keys * kvh * g * d
-                n_bytes += p0 * kvh * (2 * d + 4)
-                if int(wm[r]):
-                    n_bytes += -(-nt // bs) * bs * kvh * (2 * d + 4)
-            b_ms, b_by = bound_ms(n_bytes, n_ops,
-                                  attention_peak(torch, q.dtype))
             entry = {"name": "flash_prefill", "route": "cuda",
                      "source": "src/repro_torch/csrc/flash_prefill.cu",
                      "replaces":
                          "src/repro/kernels/paged_attention/kernel.py:480",
                      "shape": f"B={b} C={c} KVH={kvh} G={g} D={d} BS={bs} "
                               "pos=[0,64,1024,64] int8 pool",
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": library_ms,
+                     **k3_times(torch, timer, ops, args, g),
                      "library": "scaled_dot_product_attention per row over "
                                 "the gathered past pages + chunk"}
     entry["max_abs_err"] = err
     entry["max_abs_err_bf16"] = err_bf16
     entry["bf16_tolerance_used"] = tol_used
+    entry["suffix_cases"] = k3_suffix_cases(torch, timer, ops, gen)
+    entry["max_abs_err_suffix"] = max(e["max_abs_err"]
+                                      for e in entry["suffix_cases"])
     return entry
+
+
+def k3_times(torch, timer, ops, args, g) -> dict:
+    """Kernel, plain-version and SDPA-yardstick times of one K3 call and
+    its bound: ``args`` are flash_prefill_kernel's (int8 pool), ``g`` the
+    GQA group.  The bound counts this call's data: each row's past pages
+    read once, its chunk's queries, keys and values, the output, and the
+    pages it writes where its mask is set; operations 4·keys·D per query
+    head and position (QK and PV), causal within the chunk."""
+    q, k_new, v_new, k1, v1, ks1, vs1, tables, pos, n_tok, wm = args
+    b, kvh, cg, d = q.shape
+    c = k_new.shape[1]
+    bs = k1.shape[1]
+    ms = timer.ms(lambda: ops.flash_prefill_kernel(*args))
+    plain_ms = timer.ms(lambda: ops.flash_prefill_plain(*args), iters=5)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    calls = []
+    for r in range(b):
+        p0 = int(pos[r])
+        past_k = _dense_kv(torch, k1, ks1, tables[r:r + 1], p0)
+        past_v = _dense_kv(torch, v1, vs1, tables[r:r + 1], p0)
+        kk = torch.cat([past_k, k_new[r:r + 1].float()], 1)
+        vv = torch.cat([past_v, v_new[r:r + 1].float()], 1)
+        kk = kk.permute(0, 2, 1, 3).repeat_interleave(g, 1)
+        vv = vv.permute(0, 2, 1, 3).repeat_interleave(g, 1)
+        qq = q[r].reshape(kvh, c, g, d).permute(0, 2, 1, 3).reshape(
+            1, kvh * g, c, d).float()
+        mask = (torch.arange(p0 + c, device="cuda")[None, :]
+                <= p0 + torch.arange(c, device="cuda")[:, None])
+        calls.append((qq, kk, vv, mask))
+    library_ms = timer.ms(
+        lambda: [sdpa(qq, kk, vv, attn_mask=mk) for qq, kk, vv, mk in calls])
+    n_ops = 0.0
+    n_bytes = (q.numel() * 2 * 2 + k_new.numel() * 2 * 2
+               + tables.numel() * 4)
+    for r in range(b):
+        p0, nt = int(pos[r]), int(n_tok[r])
+        keys = sum(p0 + min(ci + 1, nt) for ci in range(c))
+        n_ops += 4.0 * keys * kvh * g * d
+        n_bytes += p0 * kvh * (2 * d + 4)
+        if int(wm[r]):
+            n_bytes += -(-nt // bs) * bs * kvh * (2 * d + 4)
+    b_ms, b_by = bound_ms(n_bytes, n_ops, attention_peak(torch, q.dtype))
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": library_ms}
+
+
+def k3_suffix_cases(torch, timer, ops, gen) -> list:
+    """K3 at the prefix cache's suffix-prefill shapes (the durable phase's
+    requests): one row, a pow2 chunk C of whole blocks starting past the
+    system prompt, the table a pow2 cover of the prompt, bf16
+    queries over the int8 pool; the exact hit's last block (C = 16 at pos
+    = prompt - 16); and C = 512.  Each on both write-mask values: the
+    output (the masked row's included, which an exact hit reads) within
+    1e-3 plus one bf16 ulp of the plain version, written pages bit-exact,
+    and with the mask at 0 no page changed."""
+    kvh, g, d, bs = 8, 4, 128, 16
+    exact_hits = {(SYS_LEN + SUFFIX_LENS[i] - bs, bs, bs)
+                  for i in DUPLICATES}
+    shapes = sorted({(SYS_LEN, n, bs * next_pow2(-(-n // bs)))
+                     for n in SUFFIX_LENS} | exact_hits
+                    | {(SYS_LEN, 500, 512)})
+    cases = []
+    for pos0, n, c in shapes:
+        w = next_pow2(-(-(pos0 + c) // bs))
+        nb = w + 1
+        tables = (torch.randperm(nb - 1, generator=gen, device="cuda")
+                  + 1)[None].to(torch.int32).contiguous()
+        q = torch.randn(1, kvh, c * g, d, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        k_new, v_new = (torch.randn(1, c, kvh, d, generator=gen,
+                                    device="cuda").to(torch.bfloat16)
+                        for _ in range(2))
+        (kp, vp), (ks, vs) = _pool(torch, gen, nb, bs, kvh, d, True)
+        pos = torch.tensor([pos0], dtype=torch.int32, device="cuda")
+        n_tok = torch.tensor([n], dtype=torch.int32, device="cuda")
+        for write in (1, 0):
+            wm = torch.tensor([write], dtype=torch.int32, device="cuda")
+            p1 = [t.clone() for t in (kp, vp, ks, vs)]
+            p2 = [t.clone() for t in (kp, vp, ks, vs)]
+            got = ops.flash_prefill_kernel(q, k_new, v_new, *p1, tables,
+                                           pos, n_tok, wm).float()
+            want = ops.flash_prefill_plain(q, k_new, v_new, *p2, tables,
+                                           pos, n_tok, wm).float()
+            diff = (got - want).abs()
+            tol = 1e-3 + 2.0 ** -7 * want.abs()
+            if not bool((diff <= tol).all()):
+                raise AssertionError(
+                    f"K3 suffix C={c} pos={pos0} wm={write}: max abs err "
+                    f"{diff.max().item()}")
+            for a_, b_, orig in zip(p1, p2, (kp, vp, ks, vs)):
+                if not torch.equal(a_[1:], b_[1:]):
+                    raise AssertionError(f"K3 suffix C={c}: pages differ")
+                if not write and not torch.equal(a_, orig):
+                    raise AssertionError(
+                        f"K3 suffix C={c}: a masked row changed a page")
+            args = (q, k_new, v_new, *p1, tables, pos, n_tok, wm)
+            cases.append({"shape": f"B=1 C={c} pos={pos0} n_tok={n} W={w} "
+                                   f"KVH={kvh} G={g} D={d} BS={bs} "
+                                   f"write_mask={write} int8 pool",
+                          "max_abs_err": diff.max().item(),
+                          "bf16_tolerance_used": (diff / tol).max().item(),
+                          **k3_times(torch, timer, ops, args, g)})
+    return cases
 
 
 def check_k4(torch, timer, ops, gen):
@@ -1370,6 +1499,285 @@ def blocking_path(torch, cfg, cim_ops, paged_ops, *, device="cuda",
 
 
 # ---------------------------------------------------------------------------
+# The durable phase: prefix cache, page-out, drain and restore
+# ---------------------------------------------------------------------------
+
+# Eight requests share a 256-token system prompt (16 blocks) and carry
+# unique suffixes of 32-224 tokens; requests 6 and 7 repeat requests 0 and
+# 5 whole (block-aligned, so they are exact prefix hits).  Prompts from
+# seed 2, MAX_NEW new tokens each, greedy.
+SYS_LEN = 256
+SUFFIX_LENS = (32, 224, 96, 160, 48, 128)
+DUPLICATES = (0, 5)
+DURABLE_ARRIVALS = (0, 1, 1, 2, 3, 3, 6, 40)
+STORM_SHORT = 8          # page-out pool: blocks short of the worst case
+DRAIN_AT_STEP = 16        # drain at the first event of this sim step
+DRAIN_DEADLINE = 2        # ... giving the running requests 2 more steps
+MAX_BLOCKS_PER_REQ = 32   # the longest request, 256 + 224 + MAX_NEW tokens
+
+
+def next_pow2(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
+def durable_requests(torch, cfg):
+    import numpy as np
+
+    from repro_torch.serve import Request
+    rng = torch.Generator().manual_seed(2)
+    system = torch.randint(0, cfg.vocab, (SYS_LEN,), generator=rng).numpy()
+    prompts = [np.concatenate([system, torch.randint(
+                   0, cfg.vocab, (n,), generator=rng).numpy()])
+               for n in SUFFIX_LENS]
+    prompts += [prompts[i].copy() for i in DUPLICATES]
+    return [Request(rid=100 + i, prompt=p, max_new=MAX_NEW, arrival_step=a)
+            for i, (p, a) in enumerate(zip(prompts, DURABLE_ARRIVALS))]
+
+
+def exact_gate(ref: dict, got: dict, what: str):
+    """Streams of ``got`` against ``ref`` ({rid: RequestResult}): the
+    same tokens and the same logprobs, bit for bit."""
+    import numpy as np
+    diff = [rid for rid, r in ref.items()
+            if rid not in got or not np.array_equal(r.tokens, got[rid].tokens)
+            or not np.array_equal(r.logprobs, got[rid].logprobs)]
+    lp = max((float(abs(r.logprobs - got[rid].logprobs).max())
+              for rid, r in ref.items() if rid in got
+              and len(r.logprobs) == len(got[rid].logprobs)
+              and len(r.logprobs)), default=0.0)
+    failures = [f"{what}: streams of {diff} differ from the reference "
+                f"(tokens or logprobs; max logprob diff {lp})"] if diff \
+        else []
+    return {"identical": len(ref) - len(diff), "differ": diff,
+            "max_logprob_diff": lp}, failures
+
+
+def stream_gate(ref: dict, got: dict, what: str):
+    """Greedy streams of ``got`` against ``ref`` ({rid: RequestResult}):
+    identical, or first diverging at a tie inside the measured noise.
+
+    The noise is the largest logprob difference of the same token over
+    every position before any divergence (all requests).  If the two
+    runs' logits differ by at most d, that difference reaches 2d, and at
+    a first divergence the gap between the two runs' picked logprobs is
+    at most 4d: so a divergence whose gap is within twice the measured
+    noise is a tie at this precision, anything else a mismatch."""
+    firsts, floor = {}, 0.0
+    for rid, r in ref.items():
+        a, b = r.tokens, got[rid].tokens
+        n = min(len(a), len(b))
+        p = next((i for i in range(n) if a[i] != b[i]), n)
+        if p:
+            floor = max(floor, float(abs(r.logprobs[:p]
+                                         - got[rid].logprobs[:p]).max()))
+        if p < max(len(a), len(b)):
+            firsts[rid] = p
+    ties, mismatches, gaps = [], [], {}
+    for rid, p in firsts.items():
+        a, b = ref[rid], got[rid]
+        if p >= min(len(a.tokens), len(b.tokens)):
+            mismatches.append(rid)          # lengths differ, no stop tokens
+            continue
+        gaps[rid] = float(abs(a.logprobs[p] - b.logprobs[p]))
+        (ties if gaps[rid] <= 2 * floor else mismatches).append(rid)
+    failures = [f"{what}: streams of {mismatches} differ beyond the "
+                f"logprob noise {floor}"] if mismatches else []
+    return {"identical": len(ref) - len(firsts), "ties": ties,
+            "mismatches": mismatches, "first_divergence": firsts,
+            "divergence_logprob_gaps": gaps,
+            "max_logprob_diff_before_divergence": floor}, failures
+
+
+def durable_path(torch, cfg, cim_ops, paged_ops, *, device="cuda",
+                 chunk: int = 64, cache=None):
+    """The durable serving modes at ``cfg``'s widths (the main path's
+    model, w8a8_kernel, int8 pool, paged attention, greedy):
+
+    * prefix: the durable requests uncached and with ``prefix_cache``,
+      blocking and chunked; every request OK, >= 6 hits, >= 2 CoW copies,
+      suffix prefills through K3 on the blocking run; blocking first
+      tokens held against the uncached run's by :func:`logit_gate`,
+      chunked streams against the uncached chunked run's by
+      :func:`stream_gate`;
+    * page-out: the same requests on a pool STORM_SHORT blocks short of
+      their worst case, ``preemption="page_out"``: spills, every request
+      OK, tokens and logprobs equal to the unpressured blocking run's
+      (:func:`exact_gate`);
+    * drain: the cached blocking run drained mid-run into a snapshot in a
+      temporary directory, restored into a fresh engine and resumed: the
+      union's tokens and logprobs equal the uninterrupted run's
+      (:func:`exact_gate`).  Snapshot bytes and the seconds to save and
+      restore are reported.
+
+    Every engine has the same geometry (max_batch, max_blocks_per_req),
+    which fixes the decode kernel's pages per split: a request then
+    decodes to the same bits at every live table width."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.serve import ContinuousEngine, RequestStatus, kv_pool
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    params, plan, _ = frozen_params(torch, cfg, device, cache)
+    reqs = durable_requests(torch, cfg)
+    base = dict(plan=plan, max_batch=8, block_size=16, segment_len=8,
+                max_blocks_per_req=MAX_BLOCKS_PER_REQ, paged_attn=True,
+                prefill_chunk=chunk, device=device)
+    total = {}
+    runs, failures = {}, []
+
+    def serve(tag, **kw):
+        ce = ContinuousEngine(params, cfg, **dict(base, **kw))
+        reset_launches(cim_ops, paged_ops)
+        sync()
+        t0 = time.perf_counter()
+        res = ce.run(reqs)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = read_launches(cim_ops, paged_ops)
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+        ce.allocator.check_invariants()
+        bad = [rid for rid, r in res.items()
+               if r.status is not RequestStatus.OK]
+        if len(res) != len(reqs) or bad:
+            failures.append(f"{tag}: requests not OK: {bad}")
+        n_tok = sum(len(r.tokens) for r in res.values())
+        runs[tag] = {"wall_s": wall, "tokens": n_tok,
+                     "tokens_per_wall_s": n_tok / wall,
+                     "launches": launches,
+                     **{k: getattr(ce, f"last_run_{k}") for k in (
+                         "segments", "prefills", "suffix_prefills",
+                         "prefix_hits", "prefix_hit_tokens",
+                         "prefix_misses", "cow_copies", "preemptions",
+                         "spills", "spill_bytes", "restores",
+                         "recomputes")}}
+        return ce, res
+
+    roomy = dict(kv_blocks=512)
+    cached = dict(roomy, prefix_cache=True, preemption="page_out")
+    ce_ub, u_b = serve("uncached_blocking", keep_first_logits=True,
+                       **roomy)
+    ce_cb, c_b = serve("cached_blocking", keep_first_logits=True, **cached)
+    full_lg, cached_lg = ce_ub.first_logits, ce_cb.first_logits
+    _, u_c = serve("uncached_chunked", chunked_prefill=True, **roomy)
+    _, c_c = serve("cached_chunked", chunked_prefill=True, **cached)
+    # Blocking: a prefix hit reads the shared prefix back from the int8
+    # pool where a full prefill attends it before quantization, so the
+    # first tokens are held by the main phase's logit gate: cached vs full
+    # prefill logits within 1.5x the floor measured between the full
+    # prefill and chunked prefill (64-token chunks, which read their
+    # earlier chunks back from the int8 pool the same way), first tokens
+    # identical except ties inside that floor.  Chunked: a hit starts on
+    # the same chunk boundary as the uncached run, and the streams must
+    # match (stream_gate).
+    pf_logits = {
+        "kernel": [cached_lg[r.rid][:cfg.vocab] for r in reqs],
+        "plain": [full_lg[r.rid][:cfg.vocab] for r in reqs],
+        "reorder": [chunked_prefill_logits(torch, params, cfg, r.prompt,
+                                           ce_ub.plan, chunk=chunk,
+                                           device=device) for r in reqs]}
+    gates = {}
+    gates["cached_blocking"], fails = logit_gate(
+        torch, pf_logits, [c_b[r.rid].tokens for r in reqs],
+        [u_b[r.rid].tokens for r in reqs])
+    failures += [f"cached_blocking: {f}" for f in fails]
+    gates["cached_blocking"]["stream_agreement"] = [
+        float((c_b[r.rid].tokens == u_b[r.rid].tokens).mean()) for r in reqs]
+    gates["cached_chunked"], fails = stream_gate(u_c, c_c, "cached_chunked")
+    failures += fails
+    for tag in ("cached_blocking", "cached_chunked"):
+        r = runs[tag]
+        if r["prefix_hits"] < 6 or r["cow_copies"] < 2:
+            failures.append(f"{tag}: {r['prefix_hits']} prefix hits, "
+                            f"{r['cow_copies']} CoW copies (want >= 6, 2)")
+    if runs["cached_blocking"]["suffix_prefills"] <= 0:
+        failures.append("no suffix prefill on the cached blocking run")
+    if device == "cuda" and runs["cached_blocking"]["launches"][
+            "flash_prefill"] <= 0:
+        failures.append("K3 never launched on the cached blocking run")
+
+    # The requests that run together (all but the late duplicate) at
+    # their full length, less STORM_SHORT blocks.
+    worst = sum(kv_pool.blocks_for(r.prompt_len + r.max_new, 16)
+                for r in reqs if r.arrival_step < MAX_NEW)
+    storm_blocks = worst - STORM_SHORT + 1
+    _, s = serve("page_out_storm", kv_blocks=storm_blocks,
+                 preemption="page_out")
+    gates["page_out_storm"], fails = exact_gate(u_b, s, "page_out_storm")
+    failures += fails
+    if runs["page_out_storm"]["spills"] <= 0:
+        failures.append("the page-out storm spilled nothing")
+
+    # Drain mid-run into a snapshot outside the repository, then restore
+    # into a fresh engine and resume.
+    snap_dir = tempfile.mkdtemp(prefix="chip_smoke_snap_")
+    try:
+        ce = ContinuousEngine(params, cfg, snapshot_dir=snap_dir,
+                              **dict(base, **cached))
+        reset_launches(cim_ops, paged_ops)
+        early, drain_ev, latched = {}, None, False
+        for ev in ce.run_stream(reqs):
+            if ev["event"] == "finish":
+                early[ev["rid"]] = ev["result"]
+            elif ev["event"] == "drain":
+                drain_ev = ev
+            if not latched and ev.get("step", 0) >= DRAIN_AT_STEP:
+                ce.drain(deadline_steps=DRAIN_DEADLINE)
+                latched = True
+        save_s = sum(e["dur"] for e in ce.tracer.to_chrome()["traceEvents"]
+                     if e["name"] == "snapshot") / 1e6
+        if drain_ev is None or len(early) >= len(reqs):
+            failures.append("the drain never cut the run short")
+            snap = {}
+        else:
+            ce2 = ContinuousEngine(params, cfg, snapshot_dir=snap_dir,
+                                   **dict(base, **cached))
+            sync()
+            t0 = time.perf_counter()
+            ce2.restore(drain_ev["path"])
+            sync()
+            restore_s = time.perf_counter() - t0
+            resumed = ce2.resume()
+            sync()
+            ce2.allocator.check_invariants()
+            for name, n in read_launches(cim_ops, paged_ops).items():
+                total[name] = total.get(name, 0) + n
+            union = {**early, **resumed}
+            bad = [rid for rid, r in union.items()
+                   if r.status is not RequestStatus.OK]
+            if len(union) != len(reqs) or bad:
+                failures.append(f"drain/restore: requests not OK: {bad}")
+            gates["drain_restore"], fails = exact_gate(
+                c_b, union, "drain_restore")
+            failures += fails
+            snap = {"snapshot_bytes": os.path.getsize(drain_ev["path"]),
+                    "save_s": save_s, "restore_s": restore_s,
+                    "finished_before_drain": len(early),
+                    "running_at_drain": drain_ev["running"],
+                    "spilled_at_drain": drain_ev["spilled"],
+                    "queued_at_drain": drain_ev["queued"],
+                    "recoveries": ce2.last_run_recoveries,
+                    "restores_after": ce2.last_run_restores}
+    finally:
+        shutil.rmtree(snap_dir, ignore_errors=True)
+    result = {"phase": "durable", "layers": cfg.n_layers,
+              "requests": len(reqs),
+              "prompt_lens": [r.prompt_len for r in reqs],
+              "storm_kv_blocks": storm_blocks, "worst_case_blocks": worst,
+              "runs": runs, "gates": gates, "drain": snap,
+              "launches": total,
+              "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                              if device == "cuda" else None)}
+    result["ok"] = not failures
+    return result, total, failures
+
+
+# ---------------------------------------------------------------------------
 # The VGG-8 deployment path
 # ---------------------------------------------------------------------------
 
@@ -1605,7 +2013,7 @@ def main() -> int:
         from repro_torch import configs
         qwen = dataclasses.replace(configs.get_config("qwen3-8b"),
                                    kv_cache_dtype="int8")
-        # The three serving phases share one model, made in the first.
+        # The serving phases share one model, made in the first.
         served: dict = {}
         paths = (
             ("main", lambda: main_path(torch, qwen, cim_ops, paged_ops,
@@ -1614,6 +2022,8 @@ def main() -> int:
                                            cache=served)),
             ("blocking", lambda: blocking_path(torch, qwen, cim_ops,
                                                paged_ops, cache=served)),
+            ("durable", lambda: durable_path(torch, qwen, cim_ops,
+                                             paged_ops, cache=served)),
             ("vgg8", lambda: vgg8_path(torch, cim_ops, bs_ops, caat_ops)))
         for path, drive in paths:
             if path == "vgg8":

@@ -19,7 +19,10 @@
 // * Grid (row x kv-head, split, head tile).  The wrapper picks the split
 //   count from the card's SM count (autotune.heuristic_paged_splits_cuda),
 //   so the grid covers every SM about twice even at small batch; a block
-//   walks only its split's pages.  The GQA group is cut into tiles of at
+//   walks only its split's pps pages (a split past the table's width is
+//   empty).  A serving engine passes a pps fixed for its widest table
+//   (autotune.paged_split_pages), so a row's partials do not depend on
+//   the table width.  The GQA group is cut into tiles of at
 //   most 8 heads (GT) to bound registers; G <= 8 is one tile.
 // * Page loads: a ring of STAGES page slots in shared memory filled with
 //   16-byte cp.async copies (codes as raw bytes, one copy per 16 bytes of
@@ -319,8 +322,8 @@ template <typename QT, typename PT, int D, int GT>
 cudaError_t launch(const void* q, const void* kp, const void* vp,
                    const void* ks, const void* vs, const int* tables,
                    const int* n_valid, float* acc, float* m, float* l, int B,
-                   int KVH, int G, int BS, int W, int S, cudaStream_t stream) {
-  const int pps = (W + S - 1) / S;
+                   int KVH, int G, int BS, int W, int S, int pps,
+                   cudaStream_t stream) {
   const size_t smem =
       (size_t)STAGES * stage_bytes(BS, D, sizeof(PT),
                                    std::is_same<PT, int8_t>::value) +
@@ -363,13 +366,14 @@ __global__ void merge_splits_kernel(const float* __restrict__ acc,  // [BH, S, G
 }
 
 #define REPRO_DECODE_ARGS \
-  q, kp, vp, ks, vs, tables, n_valid, acc, m, l, B, KVH, G, BS, W, S, st
+  q, kp, vp, ks, vs, tables, n_valid, acc, m, l, B, KVH, G, BS, W, S, pps, st
 
 template <typename QT, typename PT, int D>
 cudaError_t by_gt(const void* q, const void* kp, const void* vp,
                   const void* ks, const void* vs, const int* tables,
                   const int* n_valid, float* acc, float* m, float* l, int B,
-                  int KVH, int G, int BS, int W, int S, cudaStream_t st) {
+                  int KVH, int G, int BS, int W, int S, int pps,
+                  cudaStream_t st) {
   if (G <= 1) return launch<QT, PT, D, 1>(REPRO_DECODE_ARGS);
   if (G <= 2) return launch<QT, PT, D, 2>(REPRO_DECODE_ARGS);
   if (G <= 4) return launch<QT, PT, D, 4>(REPRO_DECODE_ARGS);
@@ -380,7 +384,8 @@ template <typename QT, typename PT>
 cudaError_t by_d(int D, const void* q, const void* kp, const void* vp,
                  const void* ks, const void* vs, const int* tables,
                  const int* n_valid, float* acc, float* m, float* l, int B,
-                 int KVH, int G, int BS, int W, int S, cudaStream_t st) {
+                 int KVH, int G, int BS, int W, int S, int pps,
+                 cudaStream_t st) {
   switch (D) {
     case 32: return by_gt<QT, PT, 32>(REPRO_DECODE_ARGS);
     case 64: return by_gt<QT, PT, 64>(REPRO_DECODE_ARGS);
@@ -395,7 +400,7 @@ cudaError_t by_page(int page_dtype, int D, const void* q, const void* kp,
                     const void* vp, const void* ks, const void* vs,
                     const int* tables, const int* n_valid, float* acc,
                     float* m, float* l, int B, int KVH, int G, int BS, int W,
-                    int S, cudaStream_t st) {
+                    int S, int pps, cudaStream_t st) {
   switch (page_dtype) {
     case repro::kF32: return by_d<QT, float>(D, REPRO_DECODE_ARGS);
     case repro::kBF16: return by_d<QT, __nv_bfloat16>(D, REPRO_DECODE_ARGS);
@@ -410,7 +415,8 @@ extern "C" int paged_attention_launch(
     const void* q, int q_dtype, const void* k_pages, const void* v_pages,
     int page_dtype, const void* k_scale, const void* v_scale,
     const void* tables, const void* n_valid, void* acc, void* m, void* l,
-    int B, int KVH, int G, int D, int BS, int W, int S, void* stream) {
+    int B, int KVH, int G, int D, int BS, int W, int S, int pps,
+    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* t = static_cast<const int*>(tables);
   const int* nv = static_cast<const int*>(n_valid);
@@ -419,9 +425,9 @@ extern "C" int paged_attention_launch(
   float* ll = static_cast<float*>(l);
   cudaError_t e;
   if (q_dtype == repro::kF32)
-    e = by_page<float>(page_dtype, D, q, k_pages, v_pages, k_scale, v_scale, t, nv, a, mm, ll, B, KVH, G, BS, W, S, st);
+    e = by_page<float>(page_dtype, D, q, k_pages, v_pages, k_scale, v_scale, t, nv, a, mm, ll, B, KVH, G, BS, W, S, pps, st);
   else if (q_dtype == repro::kBF16)
-    e = by_page<__nv_bfloat16>(page_dtype, D, q, k_pages, v_pages, k_scale, v_scale, t, nv, a, mm, ll, B, KVH, G, BS, W, S, st);
+    e = by_page<__nv_bfloat16>(page_dtype, D, q, k_pages, v_pages, k_scale, v_scale, t, nv, a, mm, ll, B, KVH, G, BS, W, S, pps, st);
   else
     e = cudaErrorInvalidValue;
   return (int)e;

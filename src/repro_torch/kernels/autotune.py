@@ -47,6 +47,23 @@ def heuristic_paged_splits_cuda(batch: int, kvh: int, width: int,
     return s
 
 
+def paged_split_pages(batch: int, kvh: int, max_width: int,
+                      sm_count: int) -> int:
+    """Pages per split that an engine fixes for its decode kernel: the
+    pages each of :func:`heuristic_paged_splits_cuda`'s splits owns at
+    the engine's widest table ``max_width``.
+
+    A split then owns the same pages of a row at every narrower width
+    (the kernel takes ``ceil(width / pps)`` splits, none more than the
+    heuristic picks at ``max_width``), so a row's partials and its merged
+    output are the same bits whatever widths the rest of the batch sets:
+    a request decodes alike beside any neighbours, which page-out
+    preemption and snapshot restore on the card rely on."""
+    width = max(1, max_width)
+    return -(-width // heuristic_paged_splits_cuda(batch, kvh, width,
+                                                   sm_count))
+
+
 def choose_paged_splits(batch: int, kvh: int, width: int, block_size: int,
                         dtype=None, *, head_dim: int = 0,
                         groups: int = 1) -> int:

@@ -62,19 +62,31 @@ def _split_pages(pages):
 # Decode: split-KV flash decoding
 # ---------------------------------------------------------------------------
 
+def split_geometry(width: int, kv_splits: int = 1,
+                   split_pages: int | None = None) -> tuple[int, int]:
+    """(splits, pages per split) of the decode kernel over ``width``
+    pages: ``split_pages`` pages each when given (``ceil(width / pps)``
+    splits), else ``kv_splits`` splits of ``ceil(width / splits)``."""
+    if split_pages:
+        return max(1, -(-width // split_pages)), split_pages
+    ns = max(1, min(kv_splits, width))
+    return ns, -(-width // ns)
+
+
 def paged_attention_plain(q, k_pages, v_pages, k_scale, v_scale,
-                          block_tables, n_valid, *, kv_splits: int = 1):
+                          block_tables, n_valid, *, kv_splits: int = 1,
+                          split_pages: int | None = None):
     """The decode kernel's function in plain PyTorch: split-KV partials
     ``(acc [B,KVH,S,G,D], m [B,KVH,S,G,1], l [B,KVH,S,G,1])``.
 
     q [B,KVH,G,D]; pages [NB,BS,KVH,D] (+ [NB,BS,KVH] bf16 scales for
     int8); block_tables [B,W]; n_valid [B].  Gathers the W referenced
-    pages and computes each split's two-pass softmax partials."""
+    pages and computes each split's two-pass softmax partials; the splits
+    are :func:`split_geometry`'s."""
     b, kvh, g, d = q.shape
     bs = k_pages.shape[1]
     w = block_tables.shape[1]
-    ns = max(1, min(kv_splits, w))
-    pps = -(-w // ns)
+    ns, pps = split_geometry(w, kv_splits, split_pages)
     pad = ns * pps - w
     bt = block_tables.long()
 
@@ -155,7 +167,7 @@ def _decode_fn():
     fn = build.library("paged_attention").paged_attention_launch
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                     ctypes.c_void_p, ctypes.c_int]
-                   + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -197,7 +209,8 @@ def merge_splits_kernel(acc, m, l):
 
 
 def paged_attention_kernel(q, k_pages, v_pages, k_scale, v_scale,
-                           block_tables, n_valid, *, kv_splits: int = 1):
+                           block_tables, n_valid, *, kv_splits: int = 1,
+                           split_pages: int | None = None):
     """Launch the decode kernel; same arguments and partials as
     :func:`paged_attention_plain`.  Raises on what the kernel does not
     take."""
@@ -220,7 +233,7 @@ def paged_attention_kernel(q, k_pages, v_pages, k_scale, v_scale,
     w = block_tables.shape[1]
     _check_index(block_tables, (b, w), dev, "block_tables")
     _check_index(n_valid, (b,), dev, "n_valid")
-    ns = max(1, min(kv_splits, w))
+    ns, pps = split_geometry(w, kv_splits, split_pages)
     acc = torch.empty((b, kvh, ns, g, d), dtype=torch.float32, device=dev)
     m = torch.empty((b, kvh, ns, g, 1), dtype=torch.float32, device=dev)
     l = torch.empty((b, kvh, ns, g, 1), dtype=torch.float32, device=dev)
@@ -231,20 +244,23 @@ def paged_attention_kernel(q, k_pages, v_pages, k_scale, v_scale,
         v_pages.data_ptr(), _DTYPE_CODE[k_pages.dtype], _ptr(k_scale),
         _ptr(v_scale), block_tables.data_ptr(), n_valid.data_ptr(),
         acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, kvh, g, d, bs, w, ns,
-        torch.cuda.current_stream(dev).cuda_stream)
+        pps, torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "paged_attention")
     decode_launches += 1
     return acc, m, l
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, n_valid, *,
-                    kv_splits: int | None = None):
+                    kv_splits: int | None = None,
+                    split_pages: int | None = None):
     """Fused paged decode attention: q [B, 1, H, D] -> [B, 1, H, D].
 
+    ``split_pages`` (pages per split, fixed by a serving engine: see
+    ``autotune.paged_split_pages``) sets the splits when given; else
     ``kv_splits`` defaults to the heuristic for this shape: on CUDA the
-    card's (enough splits to give every SM two blocks), on the CPU the JAX
-    package's.  ``n_valid`` is effectively clamped to the table capacity
-    ``W * BS``."""
+    card's (enough splits to give every SM two blocks), on the CPU the
+    JAX package's.  ``n_valid`` is effectively clamped to the table
+    capacity ``W * BS``."""
     b, sq, h, d = q.shape
     if sq != 1:
         raise ValueError("paged flash decoding serves single-token queries")
@@ -253,21 +269,21 @@ def paged_attention(q, k_pages, v_pages, block_tables, n_valid, *,
     bs, kvh = k_q.shape[1], k_q.shape[2]
     g = h // kvh
     width = block_tables.shape[1]
-    if kv_splits is None and q.device.type == "cuda":
-        kv_splits = autotune.heuristic_paged_splits_cuda(
-            b, kvh, width, sm_count(q.device))
-    elif kv_splits is None:
-        kv_splits = autotune.choose_paged_splits(
-            b, kvh, width, bs, k_q.dtype, head_dim=d, groups=g)
+    if kv_splits is None and not split_pages:
+        kv_splits = (autotune.heuristic_paged_splits_cuda(
+            b, kvh, width, sm_count(q.device)) if q.device.type == "cuda"
+            else autotune.choose_paged_splits(
+                b, kvh, width, bs, k_q.dtype, head_dim=d, groups=g))
     qr = q.reshape(b, kvh, g, d)
     args = (k_q, v_q, k_s, v_s, block_tables.to(torch.int32),
             n_valid.to(torch.int32))
+    split = ({"split_pages": split_pages} if split_pages
+             else {"kv_splits": kv_splits})
     if q.device.type == "cpu":
-        out = merge_splits(*paged_attention_plain(qr, *args,
-                                                  kv_splits=kv_splits))
+        out = merge_splits(*paged_attention_plain(qr, *args, **split))
     else:
         out = merge_splits_kernel(*paged_attention_kernel(
-            qr.contiguous(), *args, kv_splits=kv_splits))
+            qr.contiguous(), *args, **split))
     return out.reshape(b, 1, h, d).to(q.dtype)
 
 

@@ -7,6 +7,12 @@ Usage:
   python -m repro_torch.launch.serve --arch qwen3-8b --continuous \\
       [--chunked-prefill] --paged-attn --plan w8a8_kernel \\
       --batch 16 --max-batch 8 --kv-blocks 128 --segment-len 8 [--device cpu]
+  python -m repro_torch.launch.serve --arch qwen3-8b --continuous \\
+      --prefix-cache --preemption page_out --snapshot-dir DIR \\
+      --drain-deadline 4 [--device cpu]
+  python -m repro_torch.launch.serve --arch qwen3-8b --continuous \\
+      --prefix-cache --preemption page_out \\
+      --restore DIR/serve_snap.npz [--device cpu]
 
 Like the JAX launcher it serves the arch's reduced config with random
 weights (seeded).  Without ``--continuous`` it is the static engine:
@@ -14,9 +20,12 @@ weights (seeded).  Without ``--continuous`` it is the static engine:
 ``PRNGKey(1)`` (``serve/prng.py``, the JAX launcher's prompts), one
 prefill and greedy decode on one device.  ``--continuous`` serves a
 synthetic Poisson request stream with blocking prefill, or chunked
-prefill with ``--chunked-prefill``.  Flags whose features are not ported
-yet (more than one device, ``--mesh-shape``, page-out preemption, the
-prefix cache, snapshots, drain/restore) raise ``NotImplementedError``.
+prefill with ``--chunked-prefill``; ``--prefix-cache`` gives 80% of the
+requests a shared system prefix of half the prompt; ``--drain-deadline``
+drains the run at its first completion into a final snapshot in
+``--snapshot-dir``, and ``--restore`` serves what such a snapshot holds
+in flight.  More than one device and ``--mesh-shape`` are not ported yet
+and raise ``NotImplementedError``.
 """
 import argparse
 import time
@@ -66,11 +75,8 @@ def main(argv=None):
     if args.devices not in (None, 1):
         raise NotImplementedError(f"--devices {args.devices}: more than one "
                                   f"device {later}")
-    for flag, value in (("--mesh-shape", args.mesh_shape),
-                        ("--drain-deadline", args.drain_deadline),
-                        ("--restore", args.restore)):
-        if value is not None:
-            raise NotImplementedError(f"{flag} {later}")
+    if args.mesh_shape is not None:
+        raise NotImplementedError(f"--mesh-shape {later}")
 
     from repro_torch import configs as cfg_lib
     from repro_torch import device as device_lib
@@ -104,14 +110,31 @@ def main(argv=None):
         snapshot_interval=args.snapshot_interval,
         telemetry=not args.no_telemetry,
         profiler_annotations=args.profiler_annotations, device=dev)
-    rng = np.random.default_rng(0)
-    arrivals = np.cumsum(rng.poisson(2.0, size=args.batch))
-    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, args.prompt_len),
-                    max_new=args.tokens, arrival_step=int(t),
-                    deadline_steps=args.deadline_steps)
-            for i, t in enumerate(arrivals)]
     t0 = time.perf_counter()
-    res = ce.run(reqs)
+    if args.restore is not None:
+        # Cold start from a checkpoint: serve whatever the snapshot holds
+        # in flight to completion.
+        res = ce.restore(args.restore).resume()
+        reqs = list(res.values())
+    else:
+        reqs = _requests(args, cfg, Request)
+        if args.drain_deadline is not None:
+            # Graceful shutdown: latch the drain at the first completion;
+            # stragglers land in the final snapshot (serve them later with
+            # --restore).
+            res, latched = {}, False
+            for ev in ce.run_stream(reqs):
+                if ev["event"] == "finish":
+                    res[ev["rid"]] = ev["result"]
+                    if not latched:
+                        ce.drain(args.drain_deadline)
+                        latched = True
+            if not latched:
+                raise SystemExit("--drain-deadline: no request finished "
+                                 "before the drain could latch; raise "
+                                 "--tokens")
+        else:
+            res = ce.run(reqs)
     if ce.device.type == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
@@ -122,6 +145,8 @@ def main(argv=None):
     attn = "paged-attn" if args.paged_attn else "gather"
     pf = (f"chunked-prefill:{ce.prefill_chunk}" if args.chunked_prefill
           else "blocking-prefill")
+    if args.prefix_cache:
+        pf += "|prefix-cache"
     print(f"[{tag}|continuous|{attn}|{pf}|"
           f"preemption:{args.preemption}|{ce.device}] served {len(reqs)} "
           f"requests / {total} tokens in {dt:.2f}s ({total / dt:.1f} tok/s "
@@ -129,10 +154,19 @@ def main(argv=None):
           f"{ce.last_run_dispatches} dispatches, {ce.last_run_host_syncs} "
           f"host syncs, {ce.last_run_defrags} defrags, {n_ok}/{len(reqs)} "
           f"OK ({ce.last_run_preemptions} preempts, "
-          f"{ce.last_run_recomputes} recomputes, {ce.last_run_sheds} shed, "
-          f"{ce.last_run_timeouts} timeout), p50 latency "
-          f"{lat[len(lat) // 2]} steps, TTFT p99 "
+          f"{ce.last_run_recomputes} recomputes, {ce.last_run_spills} "
+          f"spilled / {ce.last_run_restores} restored "
+          f"({ce.last_run_spill_bytes} spill bytes), "
+          f"{ce.last_run_snapshots} snapshots, {ce.last_run_recoveries} "
+          f"recovered, {ce.last_run_sheds} shed, {ce.last_run_timeouts} "
+          f"timeout), {ce.last_run_prefix_hits} prefix hits "
+          f"({ce.last_run_prefix_hit_tokens} tok cached, "
+          f"{ce.last_run_prefix_misses} misses, {ce.last_run_cow_copies} "
+          f"CoW, {ce.last_run_suffix_prefills} suffix prefills), p50 "
+          f"latency {lat[len(lat) // 2]} steps, TTFT p99 "
           f"{ce.ttft_percentile(99) * 1e3:.1f}ms")
+    if ce.last_snapshot_path:
+        print(f"snapshot -> {ce.last_snapshot_path}")
     if args.metrics_out:
         ce.export_metrics(args.metrics_out)
         print(f"metrics -> {args.metrics_out}")
@@ -140,6 +174,30 @@ def main(argv=None):
         ce.export_trace(args.trace_out)
         print(f"trace -> {args.trace_out}")
     return res
+
+
+def _requests(args, cfg, request_cls):
+    """The synthetic Poisson stream of the JAX launcher: ``--batch``
+    requests from seed 0; with ``--prefix-cache`` 80% of them start with
+    a shared system prefix of about half the prompt (whole blocks)."""
+    rng = np.random.default_rng(0)
+    arrivals = np.cumsum(rng.poisson(2.0, size=args.batch))
+    sys_prefix = None
+    if args.prefix_cache:
+        n_sys = max(args.block_size,
+                    (args.prompt_len // 2) // args.block_size
+                    * args.block_size)
+        sys_prefix = rng.integers(0, cfg.vocab, n_sys)
+    reqs = []
+    for i, t in enumerate(arrivals):
+        prompt = rng.integers(0, cfg.vocab, args.prompt_len)
+        if sys_prefix is not None and rng.random() < 0.8:
+            prompt = np.concatenate([sys_prefix,
+                                     prompt[len(sys_prefix):]])
+        reqs.append(request_cls(rid=i, prompt=prompt, max_new=args.tokens,
+                                arrival_step=int(t),
+                                deadline_steps=args.deadline_steps))
+    return reqs
 
 
 def _static(args, cfg, params, plan, dev, tag):

@@ -160,15 +160,17 @@ def gather_pages(pages, block_tables, n_valid=None):
 
 
 def attend_decode_paged(q, k_pages, v_pages, block_tables, n_valid, *,
-                        impl: str = "reference", kv_splits: int | None = None
-                        ) -> torch.Tensor:
+                        impl: str = "reference", kv_splits: int | None = None,
+                        split_pages: int | None = None) -> torch.Tensor:
     """Decode attention over a paged KV pool.  q [B, 1, H, D]; pages
     [NB, BS, KVH, D] tensors or int8 QTensors; block_tables [B, W];
-    n_valid [B] live positions per row."""
+    n_valid [B] live positions per row.  ``kv_splits`` / ``split_pages``
+    reach the fused kernel (``paged_ops.paged_attention``)."""
     if impl == "fused":
         from repro_torch.kernels.paged_attention import ops as paged_ops
         return paged_ops.paged_attention(q, k_pages, v_pages, block_tables,
-                                         n_valid, kv_splits=kv_splits)
+                                         n_valid, kv_splits=kv_splits,
+                                         split_pages=split_pages)
     if impl != "reference":
         raise ValueError(f"impl must be 'reference' or 'fused', got "
                          f"{impl!r}")
@@ -380,5 +382,6 @@ def attention(p: dict, x: torch.Tensor, cfg, *, kv_cache: dict | None = None,
         v_pages[page, off] = v[:, 0].to(v_pages.dtype)
     wrote = (torch.ones_like(lens) if wm is None else wm.to(lens.dtype))
     out = attend_decode_paged(q, k_pages, v_pages, bt, lens + wrote,
-                              impl=impl)
+                              impl=impl,
+                              split_pages=kv_cache.get("split_pages"))
     return out_proj(out), {"k": k_pages, "v": v_pages}

@@ -97,7 +97,7 @@ def decode_stack(params, x, cfg, caches: dict, *, mode=None):
     paged pool or a dense cache.  ``caches["kv"]`` holds the pool ``{k,
     v}`` or the dense cache ``{k, v, len[, k_scale, v_scale]}``, each with
     a leading layer axis; a pool's block tables / lengths / write mask /
-    chunk lengths are layer-invariant.  Caches are updated in place;
+    chunk lengths / decode pages per split are layer-invariant.  Caches are updated in place;
     returns (hidden, caches)."""
     _check_dense(cfg)
     if "block_tables" not in caches:
@@ -108,7 +108,7 @@ def decode_stack(params, x, cfg, caches: dict, *, mode=None):
         return x, caches
     shared = {key: caches[key]
               for key in ("block_tables", "lens", "write_mask", "chunk_len",
-                          "pf_has_past")
+                          "pf_has_past", "split_pages")
               if key in caches}
     pages = caches["kv"]
     for i, blk in enumerate(params["blocks"]):

@@ -12,13 +12,15 @@
   the reserved **null block**: masked writes and the padding tail of every
   block table point there, so device shapes stay static.
 
-``pack_prompt`` scatters a blocking prefill's dense cache into the pages.
-Host spill, block copy/extract/insert and snapshots arrive with the
-durability slice.
+``pack_prompt`` scatters a blocking prefill's dense cache into the pages;
+``copy_block`` (copy-on-write), ``extract_blocks``/``insert_blocks`` and
+:class:`SpillStore` move exact page bytes between pages and the host for
+page-out preemption and snapshots.
 """
 from __future__ import annotations
 
 import collections
+import dataclasses
 import hashlib
 
 import numpy as np
@@ -145,6 +147,136 @@ def apply_defrag(pages, block_tables, remap: dict[int, int]):
 
     pages = {name: permute(p) for name, p in pages.items()}
     return pages, lut[np.asarray(block_tables)].astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# Host spill (page-out preemption / snapshot)
+# ---------------------------------------------------------------------------
+#
+# numpy has no bfloat16, so a bf16 leaf (an int8 pool's scales, a bf16
+# pool's pages) crosses to the host as its 16-bit patterns, a uint16
+# array, and back through a 16-bit view: the bytes never pass through a
+# float conversion.  insert_blocks also takes the JAX package's
+# ``ml_dtypes.bfloat16`` arrays (any 2-byte dtype is viewed as uint16).
+
+def _leaves(pages):
+    """(name, tensor) for every raw leaf: ``k``/``v``, or ``k_q``/
+    ``k_scale``/``v_q``/``v_scale`` for an int8 pool."""
+    for name in ("k", "v"):
+        page = pages[name]
+        if isinstance(page, quant.QTensor):
+            yield f"{name}_q", page.q
+            yield f"{name}_scale", page.scale
+        else:
+            yield name, page
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).cpu().numpy().view(np.uint16)
+    return t.cpu().numpy()
+
+
+def _from_host(a, like: torch.Tensor) -> torch.Tensor:
+    a = np.array(a)                     # writable and contiguous
+    if like.dtype == torch.bfloat16:
+        if a.dtype.itemsize != 2:
+            raise ValueError(f"a bf16 leaf needs 16-bit host data, got "
+                             f"{a.dtype}")
+        return torch.from_numpy(a.view(np.int16)).to(like.device).view(
+            torch.bfloat16)
+    return torch.from_numpy(a).to(device=like.device, dtype=like.dtype)
+
+
+def copy_block(pages, src: int, dst: int):
+    """Device half of copy-on-write: duplicate pool page ``src`` into
+    ``dst`` across every layer and leaf, in place (an int8 pool copies
+    codes AND scales, exact bytes).  Returns the pages."""
+    for _, leaf in _leaves(pages):
+        leaf[:, dst] = leaf[:, src]
+    return pages
+
+
+def extract_blocks(pages, block_ids) -> dict[str, np.ndarray]:
+    """Gather the listed pool blocks to host memory, exact bytes.
+
+    Returns ``{"k", "v"}`` numpy arrays ``[L, n, block_size, KVH, HD]`` for
+    a dense pool, or ``{"k_q", "k_scale", "v_q", "v_scale"}`` (scale
+    ``[L, n, block_size, KVH, 1]``) for an int8 pool; bf16 leaves come back
+    as uint16 bit patterns.  The read goes through ``.cpu()``, so it sees
+    every write queued before it on the device.  Inverse of
+    :func:`insert_blocks` up to block placement."""
+    ids = list(block_ids)
+    out = {}
+    for name, leaf in _leaves(pages):
+        idx = torch.as_tensor(ids, dtype=torch.long, device=leaf.device)
+        out[name] = _to_host(leaf[:, idx])
+    return out
+
+
+def insert_blocks(pages, host_kv: dict[str, np.ndarray], block_ids):
+    """Scatter :func:`extract_blocks` output (or the JAX package's) back
+    into the pool pages at ``block_ids``, in place (possibly other blocks
+    than it came from: tables are the only names that matter).  Returns
+    the pages."""
+    ids = list(block_ids)
+    for name, leaf in _leaves(pages):
+        idx = torch.as_tensor(ids, dtype=torch.long, device=leaf.device)
+        leaf[:, idx] = _from_host(host_kv[name], leaf)
+    return pages
+
+
+@dataclasses.dataclass
+class SpillEntry:
+    """One paged-out request: its KV bytes plus the host cursors needed to
+    resume decode with zero recompute (``pending_tok`` is the sampled-but-
+    not-yet-emitted next token the engine keeps between segments)."""
+    kv: dict[str, np.ndarray]
+    n_blocks: int
+    ctx_len: int
+    n_out: int
+    pending_tok: int
+
+    @property
+    def nbytes(self) -> int:
+        return int(sum(a.nbytes for a in self.kv.values()))
+
+
+class SpillStore:
+    """Host-side store of paged-out KV state keyed by request id.  Plain
+    dict semantics plus byte accounting for the spill_bytes metric."""
+
+    def __init__(self):
+        self._entries: dict[int, SpillEntry] = {}
+
+    def __contains__(self, rid: int) -> bool:
+        return rid in self._entries
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def put(self, rid: int, entry: SpillEntry) -> None:
+        if rid in self._entries:
+            raise RuntimeError(f"request {rid} already spilled")
+        self._entries[rid] = entry
+
+    def get(self, rid: int) -> SpillEntry:
+        return self._entries[rid]
+
+    def pop(self, rid: int) -> SpillEntry:
+        return self._entries.pop(rid)
+
+    def discard(self, rid: int) -> None:
+        self._entries.pop(rid, None)
+
+    def rids(self) -> list[int]:
+        return sorted(self._entries)
+
+    def clear(self) -> None:
+        self._entries.clear()
+
+    def total_bytes(self) -> int:
+        return sum(e.nbytes for e in self._entries.values())
 
 
 # ---------------------------------------------------------------------------
@@ -367,11 +499,15 @@ class BlockAllocator:
             else:
                 raise ValueError(f"acquire_cached on unregistered block {b}")
 
-    def drop_cached(self) -> int:
-        """Invalidate every cached-free prefix entry (chaos action /
-        cache-flush): matchable history is lost, bytes and live sharing
-        are untouched.  Returns how many entries were dropped."""
-        stale = [b for b in self._block_hash if b not in self._live]
+    def drop_cached(self, keep=()) -> int:
+        """Invalidate every cached-free prefix entry but those of the
+        blocks in ``keep`` (chaos action / cache-flush; a restore keeps
+        the entries whose bytes the snapshot carried): matchable history
+        is lost, bytes and live sharing are untouched.  Returns how many
+        entries were dropped."""
+        keep = set(keep)
+        stale = [b for b in self._block_hash
+                 if b not in self._live and b not in keep]
         for b in stale:
             self._forget(b)
         return len(stale)

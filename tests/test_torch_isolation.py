@@ -156,7 +156,7 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
         assert '"ok": true' not in out.stdout
 
 
-def test_launcher_serves_on_cpu():
+def test_launcher_serves_on_cpu(tmp_path):
     from repro_torch.launch import serve as launch
     from repro_torch.serve import RequestStatus
     res = launch.main(["--arch", "qwen3-8b", "--continuous",
@@ -171,6 +171,23 @@ def test_launcher_serves_on_cpu():
                        "--batch", "2", "--tokens", "3"])
     assert all(r.status is RequestStatus.OK and len(r.tokens) == 3
                for r in res.values())
+    res = launch.main(["--arch", "qwen3-8b", "--continuous", "--paged-attn",
+                       "--plan", "w8a8_kernel", "--device", "cpu",
+                       "--prefix-cache", "--batch", "4", "--tokens", "3"])
+    assert all(r.status is RequestStatus.OK for r in res.values())
+    snap = tmp_path / "snaps"
+    common = ["--arch", "qwen3-8b", "--continuous", "--chunked-prefill",
+              "--plan", "w8a8_kernel", "--device", "cpu", "--kv-blocks",
+              "24", "--preemption", "page_out"]
+    res = launch.main(common + ["--batch", "5", "--tokens", "6",
+                                "--snapshot-dir", str(snap),
+                                "--drain-deadline", "1"])
+    assert 0 < len(res) < 5
+    assert all(r.status is RequestStatus.OK for r in res.values())
+    rest = launch.main(common + ["--restore", str(snap / "serve_snap.npz")])
+    assert set(res).isdisjoint(rest) and len(res) + len(rest) == 5
+    assert all(r.status is RequestStatus.OK and len(r.tokens) == 6
+               for r in rest.values())
     toks = launch.main(["--arch", "qwen3-8b", "--plan", "w8a8_kernel",
                         "--device", "cpu", "--devices", "1", "--batch", "2",
                         "--tokens", "3"])

@@ -133,6 +133,38 @@ def test_decode_kernel_matches_plain(hopper, kind, g, d, bs):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 8])
+def test_decode_output_independent_of_table_width(hopper, batch):
+    """With an engine's fixed pages per split (the widest table 160), a
+    row's decode output is the same bits at every table width, odd
+    widths included: a request decodes alike whatever widths its batch
+    neighbours set, which page-out and snapshot restore rely on."""
+    from repro_torch.core import quant
+    from repro_torch.device import sm_count
+    from repro_torch.kernels import autotune
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    kvh, g, d, bs = 8, 4, 128, 16
+    nb = 64
+    kp, vp, ks, vs = _pages(gen, (nb, bs, kvh, d), "int8")
+    k_pages = quant.QTensor(kp, ks[..., None])
+    v_pages = quant.QTensor(vp, vs[..., None])
+    n_valid = torch.randint(1, 12 * bs, (batch,), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    tables = torch.zeros(batch, 160, dtype=torch.int32, device="cuda")
+    tables[:, :12] = torch.randint(1, nb, (batch, 12), generator=gen,
+                                   device="cuda", dtype=torch.int32)
+    q = torch.randn(batch, 1, kvh * g, d, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    pps = autotune.paged_split_pages(batch, kvh, 160, sm_count("cuda"))
+    outs = [tops.paged_attention(q, k_pages, v_pages,
+                                 tables[:, :w].contiguous(), n_valid,
+                                 split_pages=pps)
+            for w in (12, 16, 32, 37, 128, 160)]
+    for o in outs[1:]:
+        assert torch.equal(o, outs[0])
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("ns", [1, 3, 8, 64])
 def test_merge_splits_kernel_matches_plain(hopper, ns):
     """The one-launch merge against merge_splits, a dead split and an
@@ -201,6 +233,46 @@ def test_prefill_kernel_matches_plain(hopper, dtype, int8, g, bs):
         if a is not None:
             assert torch.equal(a[1:], b_[1:])
             assert torch.equal(a[masked], orig[masked])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("write", [0, 1])
+@pytest.mark.parametrize("c", [16, 128, 512])
+def test_prefill_kernel_suffix_shapes(hopper, c, write, dtype):
+    """K3 at the prefix cache's suffix-prefill shapes: one row (B = 1), a
+    pow2 chunk of C tokens starting at pos > 0 over an int8 pool, table
+    width a pow2 cover of the prompt.  The output is held against the
+    plain version on both write-mask values (an exact prefix hit reads
+    the masked row's output); written pages are bit-exact, and with the
+    mask at 0 no page changes at all."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    kvh, g, d, bs = 8, 4, 128, 16
+    pos = 256 if c > 16 else 512 - 16       # the exact hit's last block
+    n = c - 5 if write else c               # a ragged suffix tail
+    w = 1 << (-(-(pos + c) // bs) - 1).bit_length()
+    nb = w + 9
+    tables = (torch.randperm(nb - 1, generator=gen, device="cuda")[:w]
+              + 1).reshape(1, w).to(torch.int32)
+    pos_t = torch.tensor([pos], dtype=torch.int32, device="cuda")
+    n_tok = torch.tensor([n], dtype=torch.int32, device="cuda")
+    wm = torch.tensor([write], dtype=torch.int32, device="cuda")
+    q = torch.randn(1, kvh, c * g, d, generator=gen, device="cuda").to(dtype)
+    k_new = torch.randn(1, c, kvh, d, generator=gen, device="cuda").to(dtype)
+    v_new = torch.randn(1, c, kvh, d, generator=gen, device="cuda").to(dtype)
+    pool = _pages(gen, (nb, bs, kvh, d), "int8")
+    p1 = [t.clone() for t in pool]
+    p2 = [t.clone() for t in pool]
+    got = tops.flash_prefill_kernel(q, k_new, v_new, *p1, tables, pos_t,
+                                    n_tok, wm).float()
+    want = tops.flash_prefill_plain(q, k_new, v_new, *p2, tables, pos_t,
+                                    n_tok, wm).float()
+    tol = 1e-3 + (2.0 ** -7 * want.abs() if dtype == torch.bfloat16 else 0.0)
+    assert bool(((got - want).abs() <= tol).all())
+    for a, b_, orig in zip(p1, p2, pool):
+        assert torch.equal(a[1:], b_[1:])
+        if not write:
+            assert torch.equal(a, orig)
 
 
 def _i8(gen, shape, lo=-128):
@@ -371,5 +443,52 @@ def test_served_streams_match_plain(hopper, path, monkeypatch):
         assert tops.prefill_launches > 0
     _plain_versions(monkeypatch)
     want = serve()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["prefix_blocking", "prefix_chunked",
+                                  "page_out"])
+def test_durable_streams_match_plain(hopper, mode, monkeypatch):
+    """Greedy streams served with the prefix cache (shared system prompt,
+    exact duplicates: suffix prefill through K3, copy-on-write) and under
+    page-out preemption storms equal those served through the plain
+    versions."""
+    import numpy as np
+
+    from repro_torch.serve import ContinuousEngine, Request
+    cfg, plan, params = _served_model()
+    rng = np.random.default_rng(1)
+    sys_prompt = rng.integers(0, cfg.vocab, 64)
+    prompts = [np.concatenate([sys_prompt, rng.integers(0, cfg.vocab, n)])
+               for n in (16, 40, 7, 32)]
+    prompts += [prompts[0].copy(), prompts[3].copy()]
+    reqs = [Request(rid=i, prompt=p, max_new=12, arrival_step=3 * i)
+            for i, p in enumerate(prompts)]
+    if mode == "page_out":
+        kw = dict(kv_blocks=20, preemption="page_out")
+    else:
+        kw = dict(kv_blocks=64, prefix_cache=True,
+                  chunked_prefill=mode == "prefix_chunked")
+
+    def serve():
+        ce = ContinuousEngine(params, cfg, plan=plan, max_batch=4,
+                              block_size=16, segment_len=4, paged_attn=True,
+                              prefill_chunk=32, device="cuda", **kw)
+        res = ce.run(reqs)
+        assert all(r.status.value == "ok" for r in res.values())
+        return ce, [torch.as_tensor(res[i].tokens) for i in range(len(reqs))]
+
+    cim_ops.launches = tops.decode_launches = tops.prefill_launches = 0
+    ce, got = serve()
+    assert cim_ops.launches > 0 and tops.decode_launches > 0
+    if mode == "page_out":
+        assert ce.last_run_spills > 0
+    else:
+        assert ce.last_run_prefix_hits >= 4 and ce.last_run_cow_copies >= 1
+        assert tops.prefill_launches > 0
+    _plain_versions(monkeypatch)
+    _, want = serve()
     for g, w in zip(got, want):
         assert torch.equal(g, w)

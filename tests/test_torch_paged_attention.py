@@ -146,6 +146,49 @@ def test_cuda_split_heuristic(sms, kvh):
             assert s == 1 or batch * kvh * (s // 2) < 2 * sms
 
 
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("kvh", [1, 8])
+@pytest.mark.parametrize("batch", [1, 8])
+def test_engine_split_pages(sms, kvh, batch):
+    """An engine's fixed pages per split: at its widest table it gives the
+    heuristic's split count, and no narrower width takes more splits, so
+    the grid is never wider than the heuristic's at the widest table;
+    every split owns a page."""
+    for max_w in (4, 32, 127, 512):
+        pps = tautotune.paged_split_pages(batch, kvh, max_w, sms)
+        ns_max, _ = tops.split_geometry(max_w, split_pages=pps)
+        assert ns_max == tautotune.heuristic_paged_splits_cuda(
+            batch, kvh, max_w, sms)
+        for w in range(1, max_w + 1):
+            ns, got = tops.split_geometry(w, split_pages=pps)
+            assert got == pps and (ns - 1) * pps < w and ns <= ns_max
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_plain_split_pages_width_invariant(int8):
+    """With pages per split fixed, a row's decode output through the
+    wrapper is the same bits at every table width (extra splits are
+    empty and merge as exact zeros), and equals JAX's decode."""
+    rng = np.random.default_rng(9)
+    b, nb = 3, 40
+    tables = np.zeros((b, 37), np.int32)
+    tables[:, :10] = (rng.permutation(nb - 1)[:3 * 10] + 1).reshape(b, 10)
+    n_valid = np.array([10 * BS, 3 * BS + 1, 0], np.int32)
+    q = rng.standard_normal((b, 1, H, D)).astype(np.float32)
+    (jk, tk), (jv, tv) = _pool(int8, 4, (nb, BS, KVH, D))
+    outs = [tops.paged_attention(_t(q), tk, tv, _t(tables[:, :w].copy()),
+                                 _t(n_valid), split_pages=4)
+            for w in (10, 12, 16, 37)]
+    for o in outs[1:]:
+        assert torch.equal(o, outs[0])
+    want = jops.paged_attention(jnp.asarray(q), jk, jv,
+                                jnp.asarray(tables[:, :16]),
+                                jnp.asarray(n_valid))
+    np.testing.assert_allclose(outs[0].numpy()[:2], np.asarray(want)[:2],
+                               rtol=1e-5, atol=1e-5)
+    assert not outs[0][2].any()
+
+
 def test_cpu_split_heuristic_is_jax():
     """On CPU tensors the decode wrapper keeps the JAX package's split
     heuristic, so CPU parity with JAX is unchanged."""

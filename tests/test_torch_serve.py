@@ -90,3 +90,66 @@ def test_streams_identical_to_jax(master, plan_name, int8, jax_plan):
     assert te.last_run_segments == je.last_run_segments
     assert te.last_run_prefill_chunks == je.last_run_prefill_chunks
 
+
+
+def _engine_pair(master, int8=False, plan_name="w8a8_kernel",
+                 jax_plan="w8a8", **kw):
+    """One JAX and one port ContinuousEngine built with the same keyword
+    arguments over the same parameters; returns ``(je, te, cfg)``.
+
+    The default plan is the served one, ``w8a8_kernel`` (JAX runs its
+    bit-identical ``w8a8`` oracle): its int8 linears make a row's logits
+    independent of the other rows of the batch.  Under the float
+    ``exact`` plan the port's CPU logprobs of one request move by a few
+    ulp with its batch neighbours (attend_decode's f32 contractions over
+    the gathered key axis, whose length follows the batch's longest row,
+    and the f32 linears, whose kernel follows max_batch), which would
+    break the bit-identity the durability tests hold between differently
+    loaded runs; their exact-plan cases hold an ulp bound instead."""
+    cfg, tc, jplan, tplan, jp, tp = _pair(master, plan_name, int8, jax_plan)
+    # A JAX engine compiles its programs once per instance: engines whose
+    # runs leave nothing behind (no prefix index, no snapshots) are shared
+    # between tests of one process.
+    key = (int8, plan_name, jax_plan, tuple(sorted(kw.items())))
+    stateless = not (kw.get("prefix_cache") or kw.get("snapshot_dir"))
+    je = _JAX_ENGINES.get(key) if stateless else None
+    if je is None:
+        je = JEngine(jp, cfg, plan=jplan, **kw)
+        if stateless:
+            _JAX_ENGINES[key] = je
+    return je, TEngine(tp, tc, plan=tplan, device="cpu", **kw), cfg
+
+
+_JAX_ENGINES: dict = {}
+
+
+def _serve_pair(je, te, specs, *, seed=None, temperature=0.0, faults=None):
+    """Serve ``specs`` through both engines at ``jax.random.PRNGKey(seed)``
+    (greedy without a seed).  ``faults`` maps a package's FaultInjector
+    class to a fresh injector, so both runs get the same schedule.
+    Returns ``(jax_results, port_results)``."""
+    from repro.serve import FaultInjector as JFaults
+    from repro_torch.serve import FaultInjector as TFaults
+    key = None if seed is None else jax.random.PRNGKey(seed)
+    jr = je.run([JRequest(**s) for s in specs], key=key,
+                temperature=temperature,
+                faults=None if faults is None else faults(JFaults))
+    tr = te.run([TRequest(**s) for s in specs],
+                key=None if key is None else np.asarray(key),
+                temperature=temperature,
+                faults=None if faults is None else faults(TFaults))
+    return jr, tr
+
+
+def _assert_same(tr, jr, *, logprobs=1e-4):
+    """Port results equal JAX's: statuses, finish reasons and tokens, and
+    logprobs within ``logprobs`` (None: tokens only)."""
+    assert set(tr) == set(jr)
+    for rid, j in jr.items():
+        t = tr[rid]
+        assert t.status.value == j.status.value, rid
+        assert t.finish_reason == j.finish_reason, rid
+        np.testing.assert_array_equal(t.tokens, j.tokens, err_msg=str(rid))
+        if logprobs is not None:
+            np.testing.assert_allclose(t.logprobs, j.logprobs, rtol=logprobs,
+                                       atol=logprobs, err_msg=str(rid))

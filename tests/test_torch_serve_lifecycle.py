@@ -1,8 +1,8 @@
 """Port parity of the PyTorch ContinuousEngine's lifecycle against the
 JAX package's: recompute preemption, worst-case reservation with stop
-tokens, TIMEOUT / SHED / CANCELLED retirement, and the modes not ported
-yet (page-out, the prefix cache, snapshots, fault injection) raising
-NotImplementedError."""
+tokens, TIMEOUT / SHED / CANCELLED retirement.  Page-out, the prefix cache,
+fault injection and snapshots have their own files
+(``test_torch_serve_{pageout,prefix,faults,durability}.py``)."""
 import numpy as np
 import pytest
 
@@ -10,7 +10,6 @@ from repro.serve import ContinuousEngine as JEngine
 from repro.serve import Request as JRequest
 from repro_torch.serve import ContinuousEngine as TEngine
 from repro_torch.serve import Request as TRequest
-from repro_torch.serve import RequestStatus
 from test_torch_serve import _pair, _run_both, _specs, master  # noqa: F401
 
 
@@ -72,24 +71,3 @@ def test_lifecycle_statuses(master):
     assert {"timeout", "shed", "cancelled", "ok"} <= set(got.values())
     for rid, r in results["jax"].items():
         np.testing.assert_array_equal(results["torch"][rid].tokens, r.tokens)
-
-
-@pytest.mark.parametrize("kw,match", [
-    (dict(preemption="page_out"), "page_out"),
-    (dict(prefix_cache=True), "prefix_cache"),
-    (dict(snapshot_dir="snaps"), "snapshots")])
-def test_unported_modes_raise(master, kw, match):
-    cfg, tc, jplan, tplan, jp, tp = _pair(master, "exact", False)
-    args = dict(dict(chunked_prefill=True, device="cpu"), **kw)
-    with pytest.raises(NotImplementedError, match=match):
-        TEngine(tp, tc, **args)
-
-
-def test_fault_injection_raises(master):
-    cfg, tc, jplan, tplan, jp, tp = _pair(master, "exact", False)
-    te = TEngine(tp, tc, chunked_prefill=True, device="cpu", kv_blocks=16,
-                 block_size=4)
-    reqs = [TRequest(rid=1, prompt=[1, 2, 3], max_new=2)]
-    with pytest.raises(NotImplementedError, match="fault injection"):
-        te.run(reqs, faults=object())
-    assert te.run(reqs)[1].status is RequestStatus.OK
