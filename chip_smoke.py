@@ -25,7 +25,12 @@ Phases (each prints one JSON line; any failure exits non-zero):
                kernel (the masked path, the previous design; in turns);
                K5 at every VGG-8 shape beside two library yardsticks
                (f32 torch.bmm, torch._int_mm) and the whole
-               cim_macro_matmul call.
+               cim_macro_matmul call.  Then the decoder family's
+               shapes (the ``kernel_family`` line): K1 bit-exact and timed
+               at every deployed (K, N) of deepseek-7b, stablelm-12b,
+               h2o-danube-3-4b, granite-moe-1b-a400m and
+               moonshot-v1-16b-a3b at M = 8 and 512; K2 and K3 at
+               deepseek-7b's G = 1 and stablelm-12b's D = 160.
 4. main     -- serves 8 requests through the port's ContinuousEngine at
                qwen3-8b's widths (w8a8_kernel plan, paged attention,
                chunked prefill, int8 KV pool, random weights from a seed),
@@ -56,17 +61,36 @@ Phases (each prints one JSON line; any failure exits non-zero):
                resumed (streams equal the uninterrupted run's; snapshot
                bytes, save and restore seconds).  K3 is also held against
                its plain version at the suffix-prefill shapes in phase 3.
-8. vgg8     -- the paper's VGG-8 deployment path (repro_torch.launch.fig10)
+8. families -- the rest of the decoder-only family at published widths
+               (depth cut where noted on each run's line), random weights
+               from seed 0 frozen under w8a8_kernel (routers float),
+               greedy: moonshot-v1-16b-a3b (8 of 48 layers) and
+               granite-moe-1b-a400m (all 24) through Engine.generate, 4
+               prompts of 64-512 tokens, 16 new (the 512-token prefill
+               drops tokens at capacity); h2o-danube-3-4b (all 24) with
+               its bf16 ring cache, one 4608-token prompt, 32 new;
+               deepseek-7b and stablelm-12b (4 of 30 / 40 layers) through
+               the ContinuousEngine (chunked prefill 64, paged attention,
+               int8 pool, the main phase's 8 prompts, 16 new), and
+               stablelm-12b once more through Engine.generate with a
+               2560-token prompt (attend_chunked).  Each run: every
+               request OK, K1 launched exactly (stack passes) x (layers x
+               its per-layer count + the head), K2/K3 on the continuous
+               runs, prefill logits within 1.5x the reordering floor;
+               tokens per wall second, decode-step ms, peak memory.
+9. vgg8     -- the paper's VGG-8 deployment path (repro_torch.launch.fig10)
                at its published widths with random weights from a seed:
                w8a8_kernel (with and without residency) and
                bitserial_kernel logits bit-identical to their plain plans,
                the cim plan with 8 sampled chips, calibrated full scales
                and per-channel fine-tunes, and the CAAT macro op on every
                cim layer's int8 inputs against the behavioural simulation.
-9. the ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
+10. the ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
    ``{"ok": true, "device": ...}`` line.
 
-``--skip-main`` stops after the kernel phase (a quick kernel check).
+``--skip-main`` stops after the kernel phase (a quick kernel check);
+``--only families`` (comma-separated phase names) runs only the named
+serving phases after it.
 ``--k5-only --src DIR`` only times the whole CAAT macro op at every VGG-8
 shape, with the ``repro_torch`` package of another tree (a parent commit
 unpacked beside this one).  Long output goes to
@@ -274,14 +298,40 @@ def in_turns(timer, new, parent):
     return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
 
 
+def k1_times(torch, timer, ops, args) -> dict:
+    """K1's config, plain-version and yardstick times and bound for one
+    f32-input call ``args`` (cim_matmul_kernel's).  The yardstick is
+    torch._int_mm on the pre-quantized A (it needs M > 16, so decode's A
+    is padded to 32 rows) + the epilogue; the bound counts A (f32), W,
+    the scale and bias vectors and the f32 output once."""
+    from repro_torch.device import sm_count
+    from repro_torch.kernels import autotune
+    a, w, a_scale, w_scale, bias, _ = args
+    (m, k), n = a.shape, w.shape[1]
+    a_pad = torch.zeros(max(m, 32), k, dtype=torch.int8, device="cuda")
+    a_pad[:m] = torch.clamp(torch.round(a / a_scale), -128, 127).to(
+        torch.int8)
+
+    def library():
+        acc = torch._int_mm(a_pad, w)
+        return acc[:m].to(torch.float32) * (a_scale * w_scale) + bias
+
+    n_bytes = m * k * 4 + k * n + 2 * n * 4 + m * n * 4
+    b_ms, b_by = bound_ms(n_bytes, 2.0 * m * k * n, PEAK_INT8_OPS)
+    return {"config": autotune.cim_matmul_config(
+                m, n, k, sm_count("cuda"))._asdict(),
+            "plain_ms": timer.ms(lambda: ops.cim_matmul_plain(*args),
+                                 iters=3),
+            "library_ms": timer.ms(library), "bound_ms": b_ms,
+            "bound_by": b_by}
+
+
 def check_k1(torch, timer, ops, gen):
     """cim_matmul against its plain version: bit-exact at every (K, N) of
     the model, every M of K1_CASE_MS, f32 and int8 input, requant on and
     off, and at VGG-8's ragged shapes; then timed at every (K, N) at
     decode M = 8 and prefill M = 512 beside the masked kernel (in turns) and
     the ``torch._int_mm`` + epilogue yardstick."""
-    from repro_torch.device import sm_count
-    from repro_torch.kernels import autotune
     dev = "cuda"
     n_cases = 0
     for k, n in K1_SHAPES:
@@ -345,28 +395,9 @@ def check_k1(torch, timer, ops, gen):
             ms, parent_ms, turns = in_turns(
                 timer, lambda: ops.cim_matmul_kernel(*args),
                 lambda: parent_k1(torch, ops, *args))
-            plain_ms = timer.ms(lambda: ops.cim_matmul_plain(*args),
-                                iters=3)
-            # Yardstick: torch._int_mm on the pre-quantized A (it needs
-            # M > 16, so decode's A is padded to 32 rows) + the epilogue.
-            a_pad = torch.zeros(max(m, 32), k, dtype=torch.int8, device=dev)
-            a_pad[:m] = torch.clamp(torch.round(a / a_scale), -128,
-                                    127).to(torch.int8)
-
-            def library():
-                acc = torch._int_mm(a_pad, w)
-                return acc[:m].to(torch.float32) * (a_scale * w_scale) + bias
-
-            library_ms = timer.ms(library)
-            n_bytes = m * k * 4 + k * n + 2 * n * 4 + m * n * 4
-            b_ms, b_by = bound_ms(n_bytes, 2.0 * m * k * n, PEAK_INT8_OPS)
-            rows.append({"M": m, "K": k, "N": n,
-                         "config": autotune.cim_matmul_config(
-                             m, n, k, sm_count(dev))._asdict(),
-                         "ms": ms, "parent_ms": parent_ms,
-                         "turns_ms": turns, "plain_ms": plain_ms,
-                         "library_ms": library_ms, "bound_ms": b_ms,
-                         "bound_by": b_by})
+            rows.append({"M": m, "K": k, "N": n, "ms": ms,
+                         "parent_ms": parent_ms, "turns_ms": turns,
+                         **k1_times(torch, timer, ops, args)})
     main = next(r for r in rows if (r["M"], r["K"], r["N"]) == (8, 4096,
                                                                  12288))
     return {"name": "cim_matmul", "route": "cuda",
@@ -407,6 +438,38 @@ def _dense_kv(torch, pages, scale, tables, n_tokens):
         g = g * scale[tables.long()].to(torch.float32)[..., None]
     b, w, bs = g.shape[:3]
     return g.reshape(b, w * bs, *g.shape[3:])[:, :n_tokens]
+
+
+def k2_times(torch, timer, ops, args, splits) -> dict:
+    """Kernel (at ``splits``), plain-version and SDPA-yardstick times of
+    one K2 call over an int8 pool and its bound: ``args`` are
+    paged_attention_kernel's.  The yardstick is SDPA over the gathered,
+    dequantized live pages; the bound counts each live token's codes and
+    scales once, q, the partials and the tables, operations 4 D a live
+    token and query head (QK and PV)."""
+    q, kp, vp, ks, vs, tables, lengths = args
+    b, kvh, g, d = q.shape
+    s_max = tables.shape[1] * kp.shape[1]
+    kd = _dense_kv(torch, kp, ks, tables, s_max)
+    vd = _dense_kv(torch, vp, vs, tables, s_max)
+    kd = kd.permute(0, 2, 1, 3).repeat_interleave(g, 1)
+    vd = vd.permute(0, 2, 1, 3).repeat_interleave(g, 1)
+    qd = q.reshape(b, kvh * g, 1, d).to(torch.float32)
+    mask = (torch.arange(s_max, device="cuda")[None, :]
+            < lengths[:, None])[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    tokens = int(lengths.sum())
+    n_bytes = (tokens * kvh * (2 * d + 2 * 2) + q.numel() * 2
+               + b * kvh * g * (d + 2) * 4 + tables.numel() * 4)
+    b_ms, b_by = bound_ms(n_bytes, 4.0 * tokens * kvh * g * d,
+                          attention_peak(torch, q.dtype))
+    return {"ms": timer.ms(lambda: ops.paged_attention_kernel(
+                *args, kv_splits=splits)),
+            "plain_ms": timer.ms(lambda: ops.paged_attention_plain(
+                *args, kv_splits=splits), iters=5),
+            "library_ms": timer.ms(lambda: sdpa(qd, kd, vd,
+                                                attn_mask=mask)),
+            "bound_ms": b_ms, "bound_by": b_by}
 
 
 def check_k2(torch, timer, ops, gen):
@@ -452,36 +515,17 @@ def check_k2(torch, timer, ops, gen):
                 raise AssertionError("K2: the n_valid=0 row is not zeros")
             err = max(err, e)
         if int8:
-            ms = {s_: timer.ms(lambda: ops.paged_attention_kernel(
-                *args, kv_splits=s_)) for s_ in (1, card_splits)}
-            plain_ms = timer.ms(lambda: ops.paged_attention_plain(
-                *args, kv_splits=card_splits), iters=5)
-            # Yardstick: SDPA over the gathered, dequantized live pages.
-            kd = _dense_kv(torch, kp, ks, tables, 2048)
-            vd = _dense_kv(torch, vp, vs, tables, 2048)
-            kd = kd.permute(0, 2, 1, 3).repeat_interleave(g, 1)
-            vd = vd.permute(0, 2, 1, 3).repeat_interleave(g, 1)
-            qd = q.reshape(b, kvh * g, 1, d).to(torch.float32)
-            mask = (torch.arange(2048, device="cuda")[None, :]
-                    < lengths[:, None])[:, None, None, :]
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            library_ms = timer.ms(lambda: sdpa(qd, kd, vd, attn_mask=mask))
-            tokens = int(lengths.sum())
-            n_bytes = (tokens * kvh * (2 * d + 2 * 2) + q.numel() * 2
-                       + b * kvh * g * (d + 2) * 4 + tables.numel() * 4)
-            n_ops = 4.0 * tokens * kvh * g * d
-            b_ms, b_by = bound_ms(n_bytes, n_ops,
-                                  attention_peak(torch, q.dtype))
             entry = {"name": "paged_attention", "route": "cuda",
                      "source": "src/repro_torch/csrc/paged_attention.cu",
                      "replaces":
                          "src/repro/kernels/paged_attention/kernel.py:217",
                      "shape": f"B={b} KVH={kvh} G={g} D={d} BS={bs} "
-                              f"int8 pool, {tokens} live tokens",
+                              f"int8 pool, {int(lengths.sum())} live "
+                              "tokens",
                      "kv_splits": card_splits,
-                     "ms": ms[card_splits], "ms_splits1": ms[1],
-                     "plain_ms": plain_ms, "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": library_ms,
+                     "ms_splits1": timer.ms(lambda: ops.paged_attention_kernel(
+                         *args, kv_splits=1)),
+                     **k2_times(torch, timer, ops, args, card_splits),
                      "library": "scaled_dot_product_attention over the "
                                 "gathered dequantized pages"}
     entry["max_abs_err"] = err
@@ -1092,10 +1136,15 @@ def read_launches(cim_ops, paged_ops) -> dict:
             "merge_splits": paged_ops.merge_launches}
 
 
-def logit_gate(torch, pf_logits, tokens_kernel, tokens_plain) -> dict:
+def logit_gate(torch, pf_logits, tokens_kernel, tokens_plain, *,
+               run_floor: bool = False) -> dict:
     """Kernel vs plain prefill logits against the plain-vs-plain
     reordering floor (``pf_logits`` holds "kernel", "plain" and "reorder"
-    lists), and first tokens that differ beyond that noise."""
+    lists), and first tokens that differ beyond that noise: each
+    request's own floor, or with ``run_floor`` the largest of the run's
+    (the model's reordering noise; at a few layers the two plain orders
+    can coincide bit for bit on a prompt, a floor of 0 that measures no
+    reordering)."""
     d_kp, d_floor, scale, margins = [], [], [], []
     ties, mismatch, gaps = [], [], {}
     for i, (lk, lp, lr) in enumerate(zip(*pf_logits.values())):
@@ -1106,11 +1155,13 @@ def logit_gate(torch, pf_logits, tokens_kernel, tokens_plain) -> dict:
         margins.append(float(top2[0] - top2[1]))
         tk, tp = int(tokens_kernel[i][0]), int(tokens_plain[i][0])
         if tk != tp:
-            # A different first token is a tie at this precision only when
-            # the kernel's pick is within this request's reordering noise
-            # (plain vs plain) of the plain maximum.
             gaps[i] = float(lp[tp] - lp[tk])
-            (ties if gaps[i] <= d_floor[-1] else mismatch).append(i)
+    for i, gap in gaps.items():
+        # A different first token is a tie at this precision only when the
+        # kernel's pick is within the reordering noise (plain vs plain) of
+        # the plain maximum.
+        floor = max(d_floor) if run_floor else d_floor[i]
+        (ties if gap <= floor else mismatch).append(i)
     failures = []
     # Tolerance: reordering the attention sums alone moves these logits by
     # several percent of their range (the plain-vs-plain noise floor), so
@@ -1778,6 +1829,469 @@ def durable_path(torch, cfg, cim_ops, paged_ops, *, device="cuda",
 
 
 # ---------------------------------------------------------------------------
+# The families phase: the rest of the decoder-only family
+# ---------------------------------------------------------------------------
+
+# Each run: (name, arch, layers kept (None: all), path).  Widths are the
+# published ones; only depth is cut, and the phase line states each cut.
+FAMILY_RUNS = (
+    ("moe-a", "moonshot-v1-16b-a3b", 8, "generate"),
+    ("moe-b", "granite-moe-1b-a400m", None, "generate"),
+    ("swa", "h2o-danube-3-4b", None, "generate"),
+    ("dense-g1", "deepseek-7b", 4, "continuous"),
+    ("dense-d160", "stablelm-12b", 4, "continuous"),
+)
+FAMILY_MOE_PROMPTS = (64, 192, 320, 512)   # whole 64-token chunks
+FAMILY_SWA_PROMPT = 4608                   # past the 4096 window, 9 x 512
+FAMILY_LONG_PROMPT = 2560                  # past chunked_threshold 2048
+FAMILY_NEW = {"generate": 16, "swa": 32, "continuous": 16}
+
+
+def family_plan():
+    """w8a8_kernel everywhere but the MoE routers (the default deploy
+    plan's ``*router*`` rule keeps them float)."""
+    from repro_torch.core import backend
+    return backend.DeploymentPlan(
+        rules=(("*router*", backend.LayerRule("exact")),),
+        default="w8a8_kernel")
+
+
+def family_config(arch: str, layers):
+    """The arch at its published widths with ``layers`` blocks (None: all)
+    and an int8 KV cache (a sliding window keeps its ring in bf16)."""
+    from repro_torch import configs
+    cfg = configs.get_config(arch)
+    return dataclasses.replace(cfg, n_layers=layers or cfg.n_layers,
+                               kv_cache_dtype="int8")
+
+
+def family_params(torch, cfg, plan, device):
+    """Random weights from seed 0, frozen under ``plan`` one block at a
+    time, so no more than one block's bf16 masters is ever held beside
+    the int8 model (moonshot-v1-16b-a3b is ~28 B parameters at 48
+    layers).  Returns (params, init seconds)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(0)
+    dt = torch.bfloat16
+    init = T.init_moe_block if cfg.arch_type == "moe" else T.init_dense_block
+    blocks = []
+    for _ in range(cfg.n_layers):
+        blk = {"stack": {"blocks": [init(gen, cfg, dt, device=device)]}}
+        blocks += M.freeze_params(blk, a_scale=0.05,
+                                  plan=plan)["stack"]["blocks"]
+        del blk
+    params = M.freeze_params({
+        "embed": L.init_embedding(gen, cfg.padded_vocab, cfg.d_model, dt,
+                                  device=device),
+        "final_norm": L.init_rmsnorm(cfg.d_model, device=device),
+        "lm_head": L.init_lm_head(gen, cfg.d_model, cfg.padded_vocab, dt,
+                                  device=device)}, a_scale=0.05, plan=plan)
+    params["stack"] = {"blocks": blocks}
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return params, time.perf_counter() - t0
+
+
+def k1_per_layer(cfg) -> int:
+    """K1 launches of one block's pass: q, k, v, o, then the MLP's three,
+    or three per expert (one per bank) and the shared experts' three."""
+    if cfg.arch_type != "moe":
+        return 7
+    return 4 + 3 * cfg.moe.n_experts + 3 * bool(cfg.moe.n_shared_experts)
+
+
+def linear_shapes(cfg) -> list:
+    """(K, N) of every deployed linear of ``cfg``: q, k/v, o, the MLP or
+    the expert banks, the shared experts and the head."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    kn = {(d, cfg.n_heads * hd), (d, cfg.n_kv_heads * hd),
+          (cfg.n_heads * hd, d), (d, cfg.padded_vocab)}
+    ff = cfg.moe.d_ff_expert if cfg.moe else cfg.d_ff
+    kn |= {(d, ff), (ff, d)}
+    if cfg.moe and cfg.moe.n_shared_experts:
+        s = ff * cfg.moe.n_shared_experts
+        kn |= {(d, s), (s, d)}
+    return sorted(kn)
+
+
+@contextlib.contextmanager
+def counted_passes(T):
+    """Count the stack passes (``transformer.decode_stack``: a prefill, a
+    prefill chunk or a decode step; each ends in one head call)."""
+    n = [0]
+    fn = T.decode_stack
+
+    def counting(*a, **k):
+        n[0] += 1
+        return fn(*a, **k)
+
+    with swapped(T, "decode_stack", counting):
+        yield n
+
+
+@contextlib.contextmanager
+def reordered_attention(attn_lib):
+    """The same attention in another summation order: whole-prompt
+    attention through attend_chunked's online softmax in 64-token chunks,
+    and long prompts' attend_chunked in half-size chunks (the reordering
+    floor of the Engine.generate runs)."""
+    full, chunked = attn_lib.attend_full, attn_lib.attend_chunked
+
+    def full_r(q, k, v, *, causal, window=None, q_offset=0):
+        if q.shape[1] % 64 or q_offset or k.shape[1] != q.shape[1]:
+            return full(q, k, v, causal=causal, window=window,
+                        q_offset=q_offset)
+        return chunked(q, k, v, causal=causal, window=window, q_chunk=64,
+                       kv_chunk=64)
+
+    def chunked_r(q, k, v, *, causal, window=None, q_chunk=512,
+                  kv_chunk=1024):
+        return chunked(q, k, v, causal=causal, window=window,
+                       q_chunk=q_chunk // 2, kv_chunk=kv_chunk // 2)
+
+    with swapped(attn_lib, "attend_full", full_r), \
+            swapped(attn_lib, "attend_chunked", chunked_r):
+        yield
+
+
+# (KVH, G, D) of the family's paged attention: deepseek-7b's MHA and
+# stablelm-12b's 160-wide heads.
+FAMILY_ATTENTION = (("deepseek-7b", 32, 1, 128), ("stablelm-12b", 8, 4, 160))
+
+
+def family_k1(torch, timer, ops, gen) -> list:
+    """K1 at every deployed (K, N) of the five family models (published
+    widths): bit-exact to its plain version at decode M = 8 and prefill M
+    = 512, f32 and int8 input, then timed (f32 input) beside its plain
+    version, the ``torch._int_mm`` yardstick and its bound."""
+    dev = "cuda"
+    shapes = {}
+    for _, arch, _, _ in FAMILY_RUNS:
+        for kn in linear_shapes(family_config(arch, None)):
+            shapes.setdefault(kn, []).append(arch)
+    a_scale = torch.tensor(0.05, device=dev)
+    one = torch.tensor(1.0, device=dev)
+    rows = []
+    for (k, n), archs in sorted(shapes.items()):
+        w = rand_i8(torch, (k, n), gen, -127)
+        w_scale = torch.rand(n, generator=gen, device=dev) * 1e-3 + 1e-4
+        bias = torch.zeros(n, device=dev)
+        for m in (8, 512):
+            a32 = torch.randn(m, k, generator=gen, device=dev) * 2.0
+            for a in (a32, rand_i8(torch, (m, k), gen)):
+                args = (a, w, a_scale, w_scale, bias, one)
+                got = ops.cim_matmul_kernel(*args)
+                want = ops.cim_matmul_plain(*args)
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"K1 not bit-exact at family M={m} K={k} N={n} "
+                        f"a={a.dtype}: {(got != want).sum().item()} differ")
+            args = (a32, w, a_scale, w_scale, bias, one)
+            rows.append({"M": m, "K": k, "N": n, "archs": archs,
+                         "ms": timer.ms(lambda: ops.cim_matmul_kernel(*args)),
+                         **k1_times(torch, timer, ops, args)})
+        del w
+    return rows
+
+
+def family_attention(torch, timer, ops, gen) -> tuple:
+    """K2 and K3 at the family's attention shapes (FAMILY_ATTENTION): K2
+    over B = 8 ragged rows up to 2048 tokens (one empty), bf16 and int8
+    pools, at the card's split count, within 1e-3 of its plain version;
+    K3 at C = 64 with past pages, a ragged row and a masked one, bf16
+    queries over bf16 and int8 pools, within 1e-3 plus one bf16 ulp with
+    pages bit-exact.  Each timed on the int8 pool beside its plain
+    version, SDPA and its bound.  Returns (K2 rows, K3 rows)."""
+    from repro_torch.kernels import autotune
+    k2_rows, k3_rows = [], []
+    for arch, kvh, g, d in FAMILY_ATTENTION:
+        b, bs = 8, 16
+        lengths = torch.tensor([2048, 1, 777, 0, 1500, 64, 1999, 300],
+                               dtype=torch.int32, device="cuda")
+        w = 2048 // bs
+        splits = autotune.heuristic_paged_splits_cuda(
+            b, kvh, w, ops.sm_count("cuda"))
+        nb = b * w + 1
+        tables = ((torch.randperm(nb - 1, generator=gen, device="cuda") + 1)
+                  [:b * w].reshape(b, w).to(torch.int32).contiguous())
+        q = torch.randn(b, kvh, g, d, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        err = 0.0
+        for int8 in (False, True):
+            (kp, vp), (ks, vs) = _pool(torch, gen, nb, bs, kvh, d, int8)
+            args = (q, kp, vp, ks, vs, tables, lengths)
+            got = ops.merge_splits_kernel(*ops.paged_attention_kernel(
+                *args, kv_splits=splits))
+            want = ops.merge_splits(*ops.paged_attention_plain(
+                *args, kv_splits=splits))
+            err = max(err, (got - want).abs().max().item())
+            if not err <= 1e-3 or got[3].abs().max().item() != 0.0:
+                raise AssertionError(f"K2 at {arch} (G={g}, D={d}) "
+                                     f"int8={int8}: max abs err {err}")
+        k2_rows.append({
+            "arch": arch, "shape": f"B={b} KVH={kvh} G={g} D={d} BS={bs} "
+                                   f"int8 pool, {int(lengths.sum())} live "
+                                   "tokens",
+            "kv_splits": splits, "max_abs_err": err,
+            **k2_times(torch, timer, ops, args, splits)})
+        del kp, vp, ks, vs, args
+
+        b, c = 4, 64
+        pos = torch.tensor([0, 64, 1024, 64], dtype=torch.int32,
+                           device="cuda")
+        n_tok = torch.tensor([64, 37, 64, 64], dtype=torch.int32,
+                             device="cuda")
+        wm = torch.tensor([1, 1, 1, 0], dtype=torch.int32, device="cuda")
+        w = (1024 + c) // bs
+        nb = b * w + 1
+        tables = ((torch.randperm(nb - 1, generator=gen, device="cuda") + 1)
+                  [:b * w].reshape(b, w).to(torch.int32).contiguous())
+        qp, k_new, v_new = (torch.randn(shape, generator=gen,
+                                        device="cuda").to(torch.bfloat16)
+                            for shape in ((b, kvh, c * g, d), (b, c, kvh, d),
+                                          (b, c, kvh, d)))
+        err = 0.0
+        for int8 in (False, True):
+            (kp, vp), (ks, vs) = _pool(torch, gen, nb, bs, kvh, d, int8)
+            p1 = [t.clone() if t is not None else None
+                  for t in (kp, vp, ks, vs)]
+            p2 = [t.clone() if t is not None else None
+                  for t in (kp, vp, ks, vs)]
+            got = ops.flash_prefill_kernel(qp, k_new, v_new, *p1, tables,
+                                           pos, n_tok, wm).float()
+            want = ops.flash_prefill_plain(qp, k_new, v_new, *p2, tables,
+                                           pos, n_tok, wm).float()
+            diff = (got - want).abs()
+            if not bool((diff <= 1e-3 + 2.0 ** -7 * want.abs()).all()):
+                raise AssertionError(f"K3 at {arch} (G={g}, D={d}) "
+                                     f"int8={int8}: max abs err "
+                                     f"{diff.max().item()}")
+            for a_, b_ in zip(p1, p2):
+                if a_ is not None and not torch.equal(a_[1:], b_[1:]):
+                    raise AssertionError(f"K3 at {arch}: pages differ")
+            err = max(err, diff.max().item())
+        k3_rows.append({
+            "arch": arch, "shape": f"B={b} C={c} KVH={kvh} G={g} D={d} "
+                                   f"BS={bs} pos=[0,64,1024,64] int8 pool",
+            "max_abs_err": err,
+            **k3_times(torch, timer, ops, (qp, k_new, v_new, *p1, tables,
+                                           pos, n_tok, wm), g)})
+        del kp, vp, ks, vs, p1, p2
+    return k2_rows, k3_rows
+
+
+def family_prompts(torch, cfg, lens, seed=3):
+    rng = torch.Generator().manual_seed(seed)
+    return [torch.randint(0, cfg.vocab, (n,), generator=rng) for n in lens]
+
+
+def family_run(torch, name, cfg, path, cim_ops, paged_ops, *,
+               device="cuda", long_prompt=None):
+    """One run of the families phase: serve ``cfg`` at its widths, gate it
+    and time it.  ``path`` "generate" serves each prompt by one
+    Engine.generate call (greedy, int8 dense cache or the bf16 ring);
+    "continuous" serves the main phase's 8 requests through a
+    ContinuousEngine with chunked prefill of 64, paged attention and an
+    int8 pool, then ``long_prompt`` (if any) through Engine.generate.
+    Returns (result, launches, failures)."""
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import ContinuousEngine, Engine, RequestStatus, prng
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    plan = family_plan()
+    params, init_s = family_params(torch, cfg, plan, device)
+    per_pass = cfg.n_layers * k1_per_layer(cfg) + 1
+    failures, runs = [], {}
+    total = dict.fromkeys(read_launches(cim_ops, paged_ops), 0)
+    pf_logits = {"kernel": [], "plain": [], "reorder": []}
+    first_kernel, gated_prompts = [], []
+
+    def served(tag, fn, n_prompts_tokens):
+        """Run ``fn`` with the counts at 0; check K1 = passes x per_pass."""
+        reset_launches(cim_ops, paged_ops)
+        with counted_passes(T) as passes:
+            sync()
+            t0 = time.perf_counter()
+            out, n_tok = fn()
+            sync()
+            wall = time.perf_counter() - t0
+        launches = read_launches(cim_ops, paged_ops)
+        for k, v in launches.items():
+            total[k] += v
+        want = passes[0] * per_pass
+        if device == "cuda" and launches["cim_matmul"] != want:
+            failures.append(f"{name}/{tag}: K1 launched "
+                            f"{launches['cim_matmul']} times, not {want} "
+                            f"({passes[0]} passes x {per_pass})")
+        runs[tag] = {"wall_s": wall, "tokens": n_tok,
+                     "tokens_per_wall_s": n_tok / wall,
+                     "prompt_tokens": n_prompts_tokens,
+                     "passes": passes[0], "k1_per_pass": per_pass,
+                     "k1_expected": want, "launches": launches,
+                     "k1_per_layer_step": (
+                         (launches["cim_matmul"] - passes[0])
+                         / max(1, passes[0] * cfg.n_layers))}
+        return out, passes[0]
+
+    def generate(prompts, new):
+        max_len = max(len(p) for p in prompts) + new + 32
+        eng = Engine(params, cfg, max_len=max_len, plan=plan, device=device)
+
+        def fn():
+            outs = [eng.generate({"tokens": p[None].to(device)},
+                                 max_new_tokens=new).tokens[0].cpu()
+                    for p in prompts]
+            return outs, sum(len(o) for o in outs)
+
+        outs, n_passes = served("generate", fn, sum(map(len, prompts)))
+        # A prefill and ``new`` decode steps per call.
+        if n_passes != len(prompts) * (new + 1):
+            failures.append(f"{name}: {n_passes} stack passes, not "
+                            f"{len(prompts) * (new + 1)}")
+        prefill = eng.prefill_fn(plan)
+        for p, o in zip(prompts, outs):
+            batch = eng.bucket({"tokens": p[None].to(device)})
+            pf_logits["kernel"].append(
+                prefill(params, batch)[0][0, -1, :cfg.vocab].float())
+            with plain_versions(cim_ops, paged_ops):
+                pf_logits["plain"].append(
+                    prefill(params, batch)[0][0, -1, :cfg.vocab].float())
+                with reordered_attention(attn_lib):
+                    pf_logits["reorder"].append(
+                        prefill(params, batch)[0][0, -1, :cfg.vocab].float())
+            first_kernel.append(o)
+            gated_prompts.append(len(p))
+        return eng
+
+    result = {"phase": "families", "run": name, "arch": cfg.name,
+              "path": path, "layers": cfg.n_layers,
+              "published_layers": family_config(cfg.name, None).n_layers,
+              "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+              "n_kv_heads": cfg.n_kv_heads,
+              "head_dim": cfg.resolved_head_dim, "vocab": cfg.vocab,
+              "sliding_window": cfg.sliding_window,
+              "moe": dataclasses.asdict(cfg.moe) if cfg.moe else None,
+              "init_s": init_s}
+    if path == "generate":
+        lens = ((FAMILY_SWA_PROMPT,) if cfg.sliding_window
+                else FAMILY_MOE_PROMPTS)
+        new = FAMILY_NEW["swa" if cfg.sliding_window else "generate"]
+        eng = generate(family_prompts(torch, cfg, lens), new)
+        step_prompt = family_prompts(torch, cfg, lens)[-1]
+    else:
+        reqs = [dataclasses.replace(r, max_new=FAMILY_NEW["continuous"])
+                for r in serving_requests(torch, cfg)]
+        ce = ContinuousEngine(params, cfg, plan=plan, max_batch=8,
+                              kv_blocks=512, block_size=16, segment_len=8,
+                              paged_attn=True, chunked_prefill=True,
+                              prefill_chunk=64, device=device)
+
+        def fn():
+            res = ce.run(reqs)
+            return res, sum(len(r.tokens) for r in res.values())
+
+        res, _ = served("continuous", fn, sum(r.prompt_len for r in reqs))
+        bad = [rid for rid, r in res.items()
+               if r.status is not RequestStatus.OK]
+        if len(res) != len(reqs) or bad:
+            failures.append(f"{name}: requests not OK: {bad}")
+        for kname in ("paged_attention", "flash_prefill", "merge_splits"):
+            if device == "cuda" and runs["continuous"]["launches"][kname] <= 0:
+                failures.append(f"{name}: {kname} never launched")
+        runs["continuous"]["segments"] = ce.last_run_segments
+        runs["continuous"]["prefill_chunks"] = ce.last_run_prefill_chunks
+        runs["continuous"]["peak_mem_gb"] = (
+            torch.cuda.max_memory_allocated() / 1e9 if device == "cuda"
+            else None)
+        kplan = ce.plan       # w8a8_kernel with paged attention
+        for r in reqs:
+            pf_logits["kernel"].append(chunked_prefill_logits(
+                torch, params, cfg, r.prompt, kplan, chunk=64,
+                device=device))
+            with plain_versions(cim_ops, paged_ops):
+                pf_logits["plain"].append(chunked_prefill_logits(
+                    torch, params, cfg, r.prompt, kplan, chunk=64,
+                    device=device))
+                pf_logits["reorder"].append(chunked_prefill_logits(
+                    torch, params, cfg, r.prompt,
+                    dataclasses.replace(kplan, paged_attn=False), chunk=64,
+                    device=device))
+            first_kernel.append(torch.as_tensor(res[r.rid].tokens))
+            gated_prompts.append(r.prompt_len)
+        eng = None
+        step_prompt = torch.as_tensor(reqs[0].prompt)
+        if long_prompt:
+            eng = generate(family_prompts(torch, cfg, (long_prompt,)),
+                           FAMILY_NEW["generate"])
+    gate, gate_failures = logit_gate(
+        torch, pf_logits, first_kernel,
+        [[int(lp.argmax())] for lp in pf_logits["plain"]], run_floor=True)
+    failures += [f"{name}: {f}" for f in gate_failures]
+
+    # One decode step at batch 1 after the longest prompt (Engine.generate's
+    # step over a dense cache), host clock around 8 synchronized steps.
+    eng = eng or Engine(params, cfg, max_len=len(step_prompt) + 48,
+                        plan=plan, device=device)
+    step = eng.make_step(plan, True)
+    logits, caches = eng.prefill_fn(plan)(
+        params, eng.bucket({"tokens": step_prompt[None].to(device)}))
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    key = prng.PRNGKey(0, device=device)
+    rids = torch.zeros(1, dtype=torch.int32, device=device)
+    temp = torch.tensor(1.0, device=device)
+    tok, _, _, caches = step(params, tok, caches, key, rids, 1, temp)
+    sync()
+    t0 = time.perf_counter()
+    for t in range(8):
+        tok, _, _, caches = step(params, tok, caches, key, rids, t + 2, temp)
+    sync()
+    result.update({
+        "runs": runs, "gated_prompt_lens": gated_prompts,
+        "decode_step_ms_b1": (time.perf_counter() - t0) / 8 * 1e3,
+        "decode_step_prompt": len(step_prompt),
+        "k1_per_layer_step": k1_per_layer(cfg), "launches": total,
+        **gate,
+        "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                        if device == "cuda" else None)})
+    result["ok"] = not failures
+    return result, total, failures
+
+
+def families_path(torch, cim_ops, paged_ops, *, device="cuda", runs=None,
+                  configs=None):
+    """The families phase: each of FAMILY_RUNS (or ``runs``) in turn, its
+    own line, params freed before the next.  ``configs`` maps a run's name
+    to a config to use instead (a reduced one for a CPU rehearsal).
+    Returns (lines, launches summed over the runs, failures)."""
+    lines, total, failures = [], {}, []
+    for name, arch, layers, path in runs or FAMILY_RUNS:
+        t = time.perf_counter()
+        cfg = (configs or {}).get(name) or family_config(arch, layers)
+        result, launches, fails = family_run(
+            torch, name, cfg, path, cim_ops, paged_ops, device=device,
+            long_prompt=(FAMILY_LONG_PROMPT if name == "dense-d160"
+                         else None))
+        result["run_s"] = time.perf_counter() - t
+        lines.append(result)
+        failures += fails
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return lines, total, failures
+
+
+# ---------------------------------------------------------------------------
 # The VGG-8 deployment path
 # ---------------------------------------------------------------------------
 
@@ -1948,6 +2462,9 @@ def vgg8_path(torch, cim_ops, bs_ops, caat_ops, *, device="cuda", cfg=None,
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--skip-main", action="store_true")
+    ap.add_argument("--only", default=None,
+                    help="comma-separated serving phases to run after the "
+                         "kernel checks (e.g. families), the rest skipped")
     ap.add_argument("--k5-only", action="store_true",
                     help="only time the whole CAAT macro op at every "
                          "VGG-8 shape")
@@ -1990,8 +2507,10 @@ def main() -> int:
         return 0
     build_s = build.build_all()
     report["ptxas"] = build.BUILD_LOG
-    emit({"phase": "build", "seconds": build_s,
-          "sources": list(build.SOURCES)})
+    report["build"] = {"phase": "build", "seconds": build_s,
+                       "sources": list(build.SOURCES),
+                       "seconds_by_source": build.BUILD_SECONDS}
+    emit(report["build"])
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
     timer = Timer(torch)
@@ -2004,6 +2523,21 @@ def main() -> int:
         entry["check_s"] = time.perf_counter() - t
         kernels.append(entry)
         emit({"phase": "kernel", **entry})
+    # The decoder family's shapes: K1 at every new (K, N), K2 and K3 at G
+    # = 1 and D = 160.
+    t = time.perf_counter()
+    by_name = {k["name"]: k for k in kernels}
+    by_name["cim_matmul"]["family_shapes"] = family_k1(torch, timer,
+                                                       cim_ops, gen)
+    k2_rows, k3_rows = family_attention(torch, timer, paged_ops, gen)
+    for kernel, rows in (("paged_attention", k2_rows),
+                         ("flash_prefill", k3_rows)):
+        by_name[kernel]["family_shapes"] = rows
+        by_name[kernel]["max_abs_err_family"] = max(r["max_abs_err"]
+                                                    for r in rows)
+    emit({"phase": "kernel_family", "check_s": time.perf_counter() - t,
+          "cim_matmul": by_name["cim_matmul"]["family_shapes"],
+          "paged_attention": k2_rows, "flash_prefill": k3_rows})
     del timer
 
     # Launches by path: each path is driven with every count set to 0
@@ -2024,15 +2558,24 @@ def main() -> int:
                                                paged_ops, cache=served)),
             ("durable", lambda: durable_path(torch, qwen, cim_ops,
                                              paged_ops, cache=served)),
+            ("families", lambda: families_path(torch, cim_ops, paged_ops)),
             ("vgg8", lambda: vgg8_path(torch, cim_ops, bs_ops, caat_ops)))
+        only = set(args.only.split(",")) if args.only else None
         for path, drive in paths:
-            if path == "vgg8":
+            if only is not None and path not in only:
+                continue
+            if path == "families":
                 served.clear()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
             result, by_path[path], failures = drive()
-            result["nvidia_smi"] = smi
-            emit(result)
+            # The families phase prints one line per run.
+            lines = result if isinstance(result, list) else [result]
+            lines[-1]["phase_s"] = time.perf_counter() - t
+            for line in lines:
+                line["nvidia_smi"] = smi
+                emit(line)
             report[path] = result
             if failures:
                 (out_dir / "chip_smoke.json").write_text(
@@ -2047,7 +2590,8 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     emit({"kernels": kernels})
     print(smi, flush=True)
-    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
 

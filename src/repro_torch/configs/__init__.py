@@ -1,6 +1,7 @@
 """Config registry for the PyTorch port: ``get_config`` and the reduced
-smoke variants.  Only the dense main-path architecture is registered so
-far; the other families arrive with their model slices.  The paper's
+smoke variants.  The decoder-only dense and MoE families are registered
+(the JAX package's order); mamba2, zamba2, whisper and qwen2-vl arrive
+with their model slices.  The paper's
 VGG-8 deployment lives beside them, as in the JAX package:
 ``repro_torch.configs.vgg8_cifar10.config()``."""
 from __future__ import annotations
@@ -12,7 +13,12 @@ from repro_torch.configs.base import (SHAPES, ModelConfig, MoEConfig,  # noqa: F
                                       ShapeConfig, SSMConfig, TrainConfig)
 
 ARCH_IDS = (
+    "moonshot-v1-16b-a3b",
+    "granite-moe-1b-a400m",
+    "stablelm-12b",
     "qwen3-8b",
+    "h2o-danube-3-4b",
+    "deepseek-7b",
 )
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}

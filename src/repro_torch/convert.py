@@ -39,7 +39,10 @@ def params_from_jax(tree, cfg, *, device="cpu") -> dict:
     """The JAX package's model parameters (master or frozen: ``w`` or
     ``w_q``/``w_scale``/``a_scale`` leaves) -> the port's parameters.  The
     ``[L, ...]`` layer stack under ``stack/blocks`` becomes a list of
-    per-layer dicts."""
+    per-layer dicts: a MoE layer's router, its expert banks (master
+    ``gate``/``up``/``down`` ``[E, K, N]``, or frozen ``{..}_q`` with
+    ``{..}_scale`` ``[E, N]``) and its ``a_scale`` (a scalar, from the
+    JAX stack's ``[L]``) come out of the same slicing."""
     out = {}
     for key, node in tree.items():
         if key == "stack":

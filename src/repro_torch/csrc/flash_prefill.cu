@@ -38,10 +38,11 @@
 //     O += P.V with the per-token V scale folded into P in f32 and P split
 //     into a bf16 hi and a bf16 lo part, two products on the exact V codes
 //     (P kept to ~16 mantissa bits).  No TF32 anywhere.
-// * Every other combination (f32 queries -- tests only --, f32 pages, other
-//   D): prefill_cuda_core_kernel, f32 dot products on the CUDA cores, one
-//   block per (row, kv-head, 16-row query tile), one dequantized page in
-//   shared memory at a time, each warp owning 4 query rows.
+// * Every other combination (f32 queries -- tests only --, f32 pages, D in
+//   {32, 160, 256}): prefill_cuda_core_kernel, f32 dot products on the CUDA
+//   cores, one block per (row, kv-head, 16-row query tile), one dequantized
+//   page in shared memory at a time, each warp owning 4 query rows.  D =
+//   160 (stablelm-12b's heads, five elements a lane) serves on this path.
 //
 // Both keep the batch axis parallel -- the TPU ran it sequentially only
 // because masked rows aliased the null block -- and tile the causal self
@@ -728,6 +729,7 @@ cudaError_t by_dpl(int dpl, const void* q, const void* kn, const void* vn,
     case 1: return launch<QT, PT, 1>(REPRO_PREFILL_ARGS);
     case 2: return launch<QT, PT, 2>(REPRO_PREFILL_ARGS);
     case 4: return launch<QT, PT, 4>(REPRO_PREFILL_ARGS);
+    case 5: return launch<QT, PT, 5>(REPRO_PREFILL_ARGS);   // stablelm-12b
     case 8: return launch<QT, PT, 8>(REPRO_PREFILL_ARGS);
     default: return cudaErrorInvalidValue;
   }

@@ -32,6 +32,9 @@
 // * Scoring: 4 warps; a token row is spread over D/8 lanes, each lane
 //   owning 8 elements (one 8-byte int8 / 16-byte bf16 read from shared
 //   memory), so a warp scores 256/D tokens per step and the block 4x that.
+//   Where D/8 is not a power of two (D = 160: stablelm-12b's heads) a row
+//   takes the next power of two of lanes and the lanes past D hold zeros,
+//   so the shuffle reductions stay butterflies (20 of 32 lanes work).
 //   A warp scores two such steps before one online-softmax update, so
 //   their shuffle and exp2 chains overlap.  Partial dot products reduce
 //   over the D/8 lanes of the row; int8 codes
@@ -95,6 +98,10 @@ __device__ __forceinline__ void row8(const uint8_t* s, float,
   x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
 }
 
+__host__ __device__ constexpr int pow2_ceil(int x) {
+  return x <= 1 ? 1 : 2 * pow2_ceil((x + 1) / 2);
+}
+
 inline __host__ __device__ int stage_bytes(int BS, int D, int esz,
                                            bool scales) {
   const int bytes = 2 * BS * D * esz + (scales ? 2 * BS * 4 : 0);
@@ -116,8 +123,8 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(
     int KVH, int G, int BS, int W, int pps) {
   constexpr bool I8 = std::is_same<PT, int8_t>::value;
   constexpr int ESZ = sizeof(PT);
-  constexpr int LPT = D / EPL;        // lanes per token row
-  constexpr int TPW = 32 / LPT;       // tokens per warp step
+  constexpr int LPT = pow2_ceil(D / EPL);   // lanes per token row
+  constexpr int TPW = 32 / LPT;             // tokens per warp step
   constexpr int CPR = D * ESZ / 16;   // 16-byte chunks per token row
   extern __shared__ __align__(16) uint8_t smem[];
   const int page_bytes = BS * D * ESZ;
@@ -131,6 +138,7 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int slot = lane / LPT;            // token slot within a warp step
   const int d0 = (lane % LPT) * EPL;      // this lane's 8 elements
+  const bool lane_live = d0 < D;          // false only on padded lanes
 
   const float qk = LOG2E / sqrtf((float)D);   // scores in log2 units
   float qr[GT][EPL], acc[GT][EPL], m[GT], l[GT];
@@ -140,7 +148,7 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(
     const QT* qp = q + (((size_t)b * KVH + h) * G + (live ? g0 + g : 0)) * D;
 #pragma unroll
     for (int e = 0; e < EPL; ++e) {
-      qr[g][e] = live ? to_f32(qp[d0 + e]) : 0.f;
+      qr[g][e] = live && lane_live ? to_f32(qp[d0 + e]) : 0.f;
       acc[g][e] = 0.f;
     }
     m[g] = NEG_INF;
@@ -165,7 +173,7 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(
     uint8_t* st = smem + (i % STAGES) * sbytes;
     const int blk = sblk[i];
     for (int c = threadIdx.x; c < 2 * BS * CPR; c += THREADS) {
-      const bool kv = c / CPR >= BS;             // CPR is a power of two
+      const bool kv = c / CPR >= BS;
       const int r = c / CPR - (kv ? BS : 0), cc = c % CPR;
       const PT* src = (kv ? v_pages : k_pages) +
                       (((size_t)blk * BS + r) * KVH + h) * D;
@@ -209,8 +217,13 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(
         valid[u] = tk[u] < BS && p * BS + tk[u] < nv;
         ksc[u] = qk;
         vsc[u] = 1.f;
-        if (valid[u]) {
+        if (valid[u] && lane_live) {
           row8(st + (tk[u] * D + d0) * ESZ, PT(), x[u]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) x[u][e] = 0.f;
+        }
+        if (valid[u]) {
           if constexpr (I8) {
             const uint32_t* words =
                 reinterpret_cast<const uint32_t*>(st + 2 * page_bytes);
@@ -219,9 +232,6 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(
             vsc[u] = scale_from_word(words[BS + tk[u]],
                                      scale_ptr(v_scale, blk, tk[u]));
           }
-        } else {
-#pragma unroll
-          for (int e = 0; e < EPL; ++e) x[u][e] = 0.f;
         }
       }
       float pr[2][GT];
@@ -258,7 +268,7 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(
       }
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
-        if (!valid[u]) continue;
+        if (!valid[u] || !lane_live) continue;
         row8(st + page_bytes + (tk[u] * D + d0) * ESZ, PT(), x[u]);
 #pragma unroll
         for (int g = 0; g < GT; ++g) {
@@ -283,7 +293,7 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(
         acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], o);
     }
     float* mw = merge + (warp * GT + g) * (D + 2);
-    if (slot == 0) {
+    if (slot == 0 && lane_live) {
 #pragma unroll
       for (int e = 0; e < EPL; ++e) mw[d0 + e] = acc[g][e];
     }
@@ -390,6 +400,7 @@ cudaError_t by_d(int D, const void* q, const void* kp, const void* vp,
     case 32: return by_gt<QT, PT, 32>(REPRO_DECODE_ARGS);
     case 64: return by_gt<QT, PT, 64>(REPRO_DECODE_ARGS);
     case 128: return by_gt<QT, PT, 128>(REPRO_DECODE_ARGS);
+    case 160: return by_gt<QT, PT, 160>(REPRO_DECODE_ARGS);
     case 256: return by_gt<QT, PT, 256>(REPRO_DECODE_ARGS);
     default: return cudaErrorInvalidValue;
   }

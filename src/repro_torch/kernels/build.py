@@ -13,6 +13,7 @@ is first launched (or :func:`build_all` is called).
 """
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -30,6 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LIBS: dict[str, ctypes.CDLL] = {}
 # ptxas register / shared-memory report of each build, by source name.
 BUILD_LOG: dict[str, str] = {}
+# Wall seconds of each source's nvcc, by source name (absent if cached).
+BUILD_SECONDS: dict[str, float] = {}
 
 
 def build_dir() -> pathlib.Path:
@@ -69,6 +72,7 @@ def _start(name: str) -> tuple[pathlib.Path, subprocess.Popen | None]:
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     proc.tmp = tmp  # type: ignore[attr-defined]
+    proc.t0 = time.perf_counter()  # type: ignore[attr-defined]
     return out, proc
 
 
@@ -77,6 +81,7 @@ def _finish(name: str, out: pathlib.Path, proc: subprocess.Popen | None):
         BUILD_LOG.setdefault(name, "(cached build)")
         return
     log, _ = proc.communicate()
+    BUILD_SECONDS[name] = time.perf_counter() - proc.t0  # type: ignore
     BUILD_LOG[name] = log
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
@@ -88,8 +93,11 @@ def build_all() -> float:
     together.  Returns the wall seconds spent."""
     t0 = time.perf_counter()
     started = [(name, *_start(name)) for name in SOURCES]
-    for name, out, proc in started:
-        _finish(name, out, proc)
+    # One waiting thread per source, so each build's seconds end when its
+    # own nvcc does.
+    with concurrent.futures.ThreadPoolExecutor(len(started)) as pool:
+        for f in [pool.submit(_finish, *s) for s in started]:
+            f.result()
     return time.perf_counter() - t0
 
 

@@ -227,8 +227,9 @@ def paged_attention_kernel(q, k_pages, v_pages, k_scale, v_scale,
     nb, bs, kvh2, d2 = k_pages.shape
     if (kvh2, d2) != (kvh, d):
         raise ValueError(f"q heads/dim {(kvh, d)} != pages {(kvh2, d2)}")
-    if d not in (32, 64, 128, 256):
-        raise ValueError(f"kernel takes D in {{32, 64, 128, 256}}, got {d}")
+    if d not in (32, 64, 128, 160, 256):
+        raise ValueError(f"kernel takes D in {{32, 64, 128, 160, 256}}, "
+                         f"got {d}")
     _check_aligned(k_pages, v_pages)
     w = block_tables.shape[1]
     _check_index(block_tables, (b, w), dev, "block_tables")
@@ -423,9 +424,10 @@ def flash_prefill_kernel(q, k_new, v_new, k_pages, v_pages, k_scale,
     if tuple(k_pages.shape[2:]) != (kvh, d):
         raise ValueError("pages' heads/dim differ from q's")
     g = cg // c
-    if cg != c * g or c % bs or d % 32 or d > 256:
+    if cg != c * g or c % bs or d not in (32, 64, 128, 160, 256):
         raise ValueError(f"kernel takes C a block_size multiple and D in "
-                         f"{{32..256}} step 32 (C={c}, BS={bs}, D={d})")
+                         f"{{32, 64, 128, 160, 256}} (C={c}, BS={bs}, "
+                         f"D={d})")
     _check_aligned(q, k_new, v_new, k_pages, v_pages)
     w = block_tables.shape[1]
     _check_index(block_tables, (b, w), dev, "block_tables")

@@ -14,8 +14,12 @@ Usage:
       --prefix-cache --preemption page_out \\
       --restore DIR/serve_snap.npz [--device cpu]
 
-Like the JAX launcher it serves the arch's reduced config with random
-weights (seeded).  Without ``--continuous`` it is the static engine:
+``--arch`` takes any of ``repro_torch.configs.ARCH_IDS`` (qwen3-8b,
+deepseek-7b, stablelm-12b, h2o-danube-3-4b, granite-moe-1b-a400m,
+moonshot-v1-16b-a3b).  MoE and sliding-window archs are served by the
+static engine only: ``--continuous`` refuses them with the JAX
+package's message.  Like the JAX launcher it serves the arch's reduced
+config with random weights (seeded).  Without ``--continuous`` it is the static engine:
 ``--batch`` prompts of ``--prompt-len`` tokens drawn from
 ``PRNGKey(1)`` (``serve/prng.py``, the JAX launcher's prompts), one
 prefill and greedy decode on one device.  ``--continuous`` serves a

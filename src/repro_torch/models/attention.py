@@ -10,13 +10,17 @@ Regimes:
   (``DeploymentPlan(paged_attn=True)``) runs the split-KV decode kernel.
 * ``attend_prefill_paged`` -- a causal prompt chunk over the paged pool,
   writing the chunk's K/V into its pages (in-kernel for ``impl="fused"``).
+* ``attend_chunked``     -- the double-chunked online-softmax loop of
+  long prompts (over ``chunked_threshold`` tokens); with a sliding window
+  each query chunk reads only its trailing KV band.
 * the dense (non-paged) KV cache of ``Engine.generate``: a prefill
-  attends its own K/V (``attend_full``) and writes the cache, a decode
-  attends the cache (``attend_decode`` / ``attend_decode_int8``).
+  attends its own K/V (``attend_full`` / ``attend_chunked``) and writes
+  the cache, a decode attends the cache (``attend_decode`` /
+  ``attend_decode_int8``).  A sliding-window model keeps a ring cache of
+  ``min(max_len, window)`` positions.
 
 Caches and the pool are updated in place (the JAX package returns new
-ones).  Sliding windows and prompts over 2048 tokens
-(``attend_chunked``) are not ported yet.
+ones).  M-RoPE is not ported yet.
 """
 from __future__ import annotations
 
@@ -59,7 +63,18 @@ def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
         b, s, h * groups, d)
 
 
-def attend_full(q, k, v, *, causal: bool) -> torch.Tensor:
+def _mask_value(q_pos, k_pos, causal: bool, window: int | None):
+    ok = torch.ones(torch.broadcast_shapes(q_pos.shape, k_pos.shape),
+                    dtype=torch.bool, device=q_pos.device)
+    if causal:
+        ok = ok & (k_pos <= q_pos)
+    if window is not None:
+        ok = ok & (k_pos > q_pos - window)
+    return ok
+
+
+def attend_full(q, k, v, *, causal: bool, window: int | None = None,
+                q_offset: int = 0) -> torch.Tensor:
     """q [B,Sq,H,D], k/v [B,Sk,KVH,D] -> [B,Sq,H,D], materialized scores."""
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
@@ -67,12 +82,72 @@ def attend_full(q, k, v, *, causal: bool) -> torch.Tensor:
     v = _repeat_kv(v, h // kvh)
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32)
     scores = scores / math.sqrt(d)
-    if causal:
-        ok = (torch.arange(sk, device=q.device)[None, :]
-              <= torch.arange(sq, device=q.device)[:, None])
-        scores = torch.where(ok[None, None], scores, NEG_INF)
+    q_pos = torch.arange(sq, device=q.device)[:, None] + q_offset
+    k_pos = torch.arange(sk, device=q.device)[None, :]
+    ok = _mask_value(q_pos, k_pos, causal, window)
+    scores = torch.where(ok[None, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def attend_chunked(q, k, v, *, causal: bool, window: int | None = None,
+                   q_chunk: int = 512, kv_chunk: int = 1024) -> torch.Tensor:
+    """Flash-style double-chunked attention, O(q_chunk * kv_chunk) live
+    scores: the JAX package's loops (query chunks outer, KV chunks inner,
+    f32 online softmax) in the same order.  With a sliding window each
+    query chunk reads only its trailing KV band of ``ceil((window +
+    q_chunk) / kv_chunk)`` KV chunks.  ``S`` must be a ``q_chunk``
+    multiple, as there."""
+    b, s, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    groups = h // kvh
+    if s % q_chunk:
+        raise ValueError(f"attend_chunked needs S % q_chunk == 0, got S={s}, "
+                         f"q_chunk={q_chunk}")
+    dev = q.device
+    full_band = -(-sk // kv_chunk) * kv_chunk
+    band = full_band
+    if window is not None:
+        band = min(-(-(window + q_chunk) // kv_chunk) * kv_chunk, full_band)
+    pad_k = band                      # left pad: every band slice in range
+    k_p = torch.nn.functional.pad(k, (0, 0, 0, 0, pad_k, 0))
+    v_p = torch.nn.functional.pad(v, (0, 0, 0, 0, pad_k, 0))
+    q_pos = band - q_chunk + torch.arange(q_chunk, device=dev)
+    outs = []
+    for i in range(s // q_chunk):
+        qc = q[:, i * q_chunk:(i + 1) * q_chunk]
+        q_end = (i + 1) * q_chunk
+        band_start = (q_end - band if causal or window is not None
+                      else sk - band)
+        lo = band_start + pad_k
+        m = torch.full((b, h, q_chunk), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((b, h, q_chunk), dtype=torch.float32, device=dev)
+        acc = torch.zeros((b, h, q_chunk, d), dtype=torch.float32,
+                          device=dev)
+        for j in range(band // kv_chunk):
+            kc = _repeat_kv(k_p[:, lo + j * kv_chunk:lo + (j + 1) * kv_chunk],
+                            groups)
+            vc = _repeat_kv(v_p[:, lo + j * kv_chunk:lo + (j + 1) * kv_chunk],
+                            groups)
+            scores = torch.einsum("bqhd,bkhd->bhqk", qc, kc).to(
+                torch.float32) / math.sqrt(d)
+            abs_q = (band_start + q_pos)[:, None]
+            abs_k = (band_start + j * kv_chunk
+                     + torch.arange(kv_chunk, device=dev))[None, :]
+            ok = (_mask_value(abs_q, abs_k, causal, window)
+                  & (abs_k >= 0) & (abs_k < sk))
+            scores = torch.where(ok[None, None], scores, NEG_INF)
+            m_new = torch.maximum(m, scores.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(scores - m_new[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p.to(qc.dtype), vc).to(torch.float32)
+            m = m_new
+        out = acc / torch.clamp_min(l, 1e-30)[..., None]
+        outs.append(out.permute(0, 2, 1, 3).to(q.dtype))
+    return torch.cat(outs, dim=1)
 
 
 def attend_decode(q, k_cache, v_cache, kv_len_mask=None) -> torch.Tensor:
@@ -241,32 +316,57 @@ def attend_prefill_paged(q, k, v, k_pages, v_pages, block_tables, pos,
     return out, k_pages, v_pages
 
 
-def _attend_dense_cache(q, k, v, kv_cache: dict) -> torch.Tensor:
+def _attend_dense_cache(q, k, v, kv_cache: dict, *, window=None,
+                        chunked_threshold: int = 2048) -> torch.Tensor:
     """The dense (non-paged) KV cache: ``kv_cache`` holds ``k``/``v``
     ``[B, S_max, KVH, D]`` (int8 codes with bf16 ``k_scale``/``v_scale``
     ``[B, S_max, KVH]`` for an int8 cache) and ``len``, a 0-d int32 tensor
     shared by the batch.  A prefill (S > 1) attends the in-hand K/V
-    (the cache holds nothing yet) and writes them at ``len``; a decode
-    writes one slot and attends the cache up to it.  Writes and the
-    ``len`` advance happen in place, on the device."""
+    (the cache holds nothing yet; ``attend_chunked`` past
+    ``chunked_threshold``) and writes them at ``len``; a decode writes one
+    slot and attends the cache up to it.
+
+    With a sliding ``window`` and a cache no longer than it, the cache is
+    a ring: a prefill writes its last ``min(S, S_max)`` positions at
+    ``position % S_max``, a decode writes at ``len % S_max`` and attends
+    the ``min(len + 1, S_max)`` live slots (keys are stored post-RoPE, so
+    the slot order does not matter).  A longer windowed cache takes the
+    band mask instead.  Writes and the ``len`` advance happen in place,
+    on the device."""
     s = q.shape[1]
+    dev = q.device
     length = kv_cache["len"]
-    idx = length.long() + torch.arange(s, device=q.device)
+    s_cache = kv_cache["k"].shape[1]
+    ring = window is not None and s_cache <= window
     int8 = "k_scale" in kv_cache
-    if int8:
-        for name, x in (("k", k), ("v", v)):
+    if not ring:
+        idx = length.long() + torch.arange(s, device=dev)
+    elif s > 1:
+        idx = torch.arange(s - min(s, s_cache), s, device=dev) % s_cache
+    else:
+        idx = (length.long() % s_cache).reshape(1)
+    tail = slice(s - idx.numel(), s)
+    for name, x in (("k", k[:, tail]), ("v", v[:, tail])):
+        if int8:
             codes, scale = quantize_kv(x)
             kv_cache[name].index_copy_(1, idx, codes)
             kv_cache[f"{name}_scale"].index_copy_(
                 1, idx, scale.to(kv_cache[f"{name}_scale"].dtype))
-    else:
-        kv_cache["k"].index_copy_(1, idx, k.to(kv_cache["k"].dtype))
-        kv_cache["v"].index_copy_(1, idx, v.to(kv_cache["v"].dtype))
+        else:
+            kv_cache[name].index_copy_(1, idx, x.to(kv_cache[name].dtype))
     if s > 1:
-        out = attend_full(q, k, v, causal=True)
+        if s <= chunked_threshold:
+            out = attend_full(q, k, v, causal=True, window=window)
+        else:
+            out = attend_chunked(q, k, v, causal=True, window=window)
     else:
-        s_cache = kv_cache["k"].shape[1]
-        mask = (torch.arange(s_cache, device=q.device) < length + s)[None]
+        slots = torch.arange(s_cache, device=dev)
+        if ring:
+            mask = (slots < torch.clamp_max(length + s, s_cache))[None]
+        else:
+            mask = (slots < length + s)[None]
+            if window is not None:
+                mask = mask & (slots > length + s - 1 - window)[None]
         if int8:
             out = attend_decode_int8(q, kv_cache["k"], kv_cache["k_scale"],
                                      kv_cache["v"], kv_cache["v_scale"],
@@ -305,9 +405,10 @@ def attention(p: dict, x: torch.Tensor, cfg, *, kv_cache: dict | None = None,
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     dt = x.dtype
-    if cfg.sliding_window is not None or cfg.mrope_sections is not None:
+    window = cfg.sliding_window
+    if cfg.mrope_sections is not None:
         raise NotImplementedError(
-            "sliding-window and M-RoPE attention are not ported yet")
+            "M-RoPE attention is not ported yet (ROADMAP queue 1)")
 
     x_in = x
     if backend_lib.residency_enabled(mode):
@@ -336,18 +437,19 @@ def attention(p: dict, x: torch.Tensor, cfg, *, kv_cache: dict | None = None,
                             path="attn/o").to(dt)
 
     if kv_cache is None:
-        if s > chunked_threshold:
-            raise NotImplementedError(
-                f"sequence {s} > {chunked_threshold}: chunked attention is "
-                "not ported yet")
-        return out_proj(attend_full(q, k, v, causal=True)), None
+        if s <= chunked_threshold:
+            out = attend_full(q, k, v, causal=True, window=window)
+        else:
+            out = attend_chunked(q, k, v, causal=True, window=window)
+        return out_proj(out), None
 
     if "block_tables" not in kv_cache:
-        if s > chunked_threshold:
-            raise NotImplementedError(
-                f"prefill of {s} > {chunked_threshold} tokens: chunked "
-                "attention is not ported yet")
-        return out_proj(_attend_dense_cache(q, k, v, kv_cache)), kv_cache
+        out = _attend_dense_cache(q, k, v, kv_cache, window=window,
+                                  chunked_threshold=chunked_threshold)
+        return out_proj(out), kv_cache
+    if window is not None:
+        raise ValueError("paged KV caches do not model sliding windows (no "
+                         "ring blocks)")
     bt = kv_cache["block_tables"]
     lens = kv_cache["lens"]
     wm = kv_cache.get("write_mask")

@@ -1,5 +1,6 @@
-"""LM wrapper: embeddings -> stack -> final norm -> head (port of the dense,
-paged-serving entry points of ``repro/models/model.py``).
+"""LM wrapper: embeddings -> stack -> final norm -> head (port of the
+serving entry points of ``repro/models/model.py`` for the dense and MoE
+decoder families).
 
   init(cfg, generator, device)                 -> params
   freeze_params(params, a_scale, plan)         -> deployed params
@@ -55,12 +56,16 @@ def _as_deploy_plan(plan) -> backend_lib.DeploymentPlan:
 
 
 def freeze_params(params, a_scale: float = 1.0, plan=None):
-    """Deploy transform: every weight-stationary linear is frozen by its
-    plan-resolved backend (int8 with static per-channel scales for
-    deployed backends, untouched master params for float ones).  Layer
-    paths are the JAX package's ('stack/blocks/attn/q', 'lm_head', ...):
-    the per-layer list adds no path component, so one plan resolves the
-    same way in both packages."""
+    """Deploy transform: every weight-stationary linear, MoE expert banks
+    included, is frozen by its plan-resolved backend (int8 with static
+    per-channel scales for deployed backends, untouched master params for
+    float ones).  Layer paths are the JAX package's
+    ('stack/blocks/attn/q', 'stack/blocks/moe', 'lm_head', ...): the
+    per-layer list adds no path component, so one plan resolves the same
+    way in both packages.  A bank ``{gate, up, down}`` ``[E, K, N]``
+    follows one rule (its three products share one dispatch buffer) and
+    becomes ``{gate,up,down}_q``, ``{..}_scale`` ``[E, N]`` and one
+    scalar ``a_scale``."""
     plan = _as_deploy_plan(plan)
 
     def freeze_with(rule, node):
@@ -78,9 +83,26 @@ def freeze_params(params, a_scale: float = 1.0, plan=None):
         if isinstance(node, dict):
             if "w" in node and isinstance(node["w"], torch.Tensor):
                 return freeze_with(plan.rule_for(path), node)
+            if {"gate", "up", "down"} <= set(node) \
+                    and isinstance(node["gate"], torch.Tensor):
+                return freeze_bank(path, node)
             return {k: walk(f"{path}/{k}" if path else k, v)
                     for k, v in node.items()}
         return node
+
+    def freeze_bank(path, node):
+        rule = plan.rule_for(path)
+        banks = ("gate", "up", "down")
+        out = {k: walk(f"{path}/{k}", v) for k, v in node.items()
+               if k not in banks}
+        if not backend_lib.get_backend(rule.backend).deploys_int8:
+            return {**out, **{k: node[k] for k in banks}}
+        for k in banks:
+            f = freeze_with(rule, {"w": node[k]})
+            out[f"{k}_q"] = f["w_q"]
+            out[f"{k}_scale"] = f["w_scale"]
+        out["a_scale"] = f["a_scale"]
+        return out
 
     return walk("", params)
 
@@ -116,10 +138,14 @@ def prefill(params, batch, cfg, *, max_len: int, mode=None):
     the true prompt length when ``tokens`` is right-padded to a bucket
     (``Engine.bucket``): logits are taken at ``length - 1`` and the write
     cursor is rewound past the pads, so decode overwrites them and the
-    length masks exclude them.  The dense family only (the JAX package's
-    ``_prefill_stack`` for dense archs is the stack pass over the dense
-    cache, ``transformer.decode_stack``)."""
+    length masks exclude them: dense archs only, as in the JAX package
+    (MoE capacity counts the pads).  The JAX package's ``_prefill_stack``
+    for dense and MoE archs is the stack pass over the dense cache,
+    ``transformer.decode_stack``."""
     tokens = batch["tokens"]
+    if batch.get("length") is not None and cfg.arch_type != "dense":
+        raise ValueError("bucketed prefill (batch['length']) is "
+                         "dense-attention only")
     dev = tokens.device
     x = layers.embed(params["embed"], tokens)
     b, s = x.shape[:2]

@@ -189,11 +189,16 @@ class ContinuousEngine:
                  snapshot_interval: int | None = None,
                  keep_first_logits: bool = False,
                  device="cuda"):
-        if cfg.arch_type != "dense" or cfg.sliding_window is not None \
-                or cfg.mrope_sections is not None:
+        if cfg.arch_type != "dense" or cfg.sliding_window is not None:
             raise ValueError(
                 "continuous batching serves dense-attention archs without "
-                "sliding windows or M-RoPE")
+                f"sliding windows (got {cfg.arch_type!r}, "
+                f"window={cfg.sliding_window})")
+        if cfg.mrope_sections is not None:
+            raise ValueError(
+                "continuous batching does not support M-RoPE archs: paged "
+                "decode derives per-row positions from the pool lengths, "
+                "which has no 3-axis (t/h/w) position layout")
         if preemption not in ("off", "recompute", "page_out"):
             raise ValueError("preemption must be 'off' (worst-case "
                              "reservation), 'recompute' (preempt + "

@@ -134,3 +134,74 @@ def test_cim_matmul_bucket_edge_m_bit_exact(m, requant):
         convert.tensor_from_numpy(ws), convert.tensor_from_numpy(bias),
         out_scale if requant else None, relu=True)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# (K, N) of every deployed linear of the decoder family at published
+# widths: q, k/v, o, the MLP (gate/up, down) or the expert banks and the
+# shared experts, and the head.
+FAMILY_KN = {
+    "deepseek-7b": ((4096, 4096), (4096, 11008), (11008, 4096),
+                    (4096, 102400)),
+    "stablelm-12b": ((5120, 5120), (5120, 1280), (5120, 13824),
+                     (13824, 5120), (5120, 100352)),
+    "h2o-danube-3-4b": ((3840, 3840), (3840, 960), (3840, 10240),
+                        (10240, 3840), (3840, 32000)),
+    "granite-moe-1b-a400m": ((1024, 1024), (1024, 512), (512, 1024),
+                             (1024, 49408)),
+    "moonshot-v1-16b-a3b": ((2048, 2048), (2048, 1408), (1408, 2048),
+                            (2048, 2816), (2816, 2048), (2048, 163840)),
+}
+# M of the family's calls: decode rows, prompt lengths, and an expert
+# bank's G*C rows (a dropless 64-token prompt; capacity 60 for moonshot
+# and 160 for granite at a 512-token prompt).
+FAMILY_M = (1, 4, 8, 60, 64, 160, 200, 512, 2560, 4608)
+
+
+def _family_kn(cfg):
+    """(K, N) of cfg's deployed linears, from its dimensions."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    kn = {(d, cfg.n_heads * hd), (d, cfg.n_kv_heads * hd),
+          (cfg.n_heads * hd, d), (d, cfg.padded_vocab)}
+    ff = cfg.moe.d_ff_expert if cfg.moe else cfg.d_ff
+    kn |= {(d, ff), (ff, d)}
+    if cfg.moe and cfg.moe.n_shared_experts:
+        s = ff * cfg.moe.n_shared_experts
+        kn |= {(d, s), (s, d)}
+    return kn
+
+
+@pytest.mark.parametrize("arch", sorted(FAMILY_KN))
+@pytest.mark.parametrize("sms", [H100_SMS, 114])
+def test_family_shapes_get_a_valid_config(arch, sms):
+    """Every deployed linear of the five new models (from their
+    configs) takes the wgmma path at every M of their calls, with a tile
+    and split the C entry points launch."""
+    from repro_torch import configs
+    kn = _family_kn(configs.get_config(arch))
+    assert kn == set(FAMILY_KN[arch])
+    for k, n in sorted(kn):
+        for m in FAMILY_M:
+            cfg = autotune.cim_matmul_config(m, n, k, sms)
+            assert cfg.path == "wgmma", (arch, m, k, n)
+            _check_valid(cfg, m, k, n, sms)
+
+
+@pytest.mark.parametrize("k,n", [(2048, 1408), (1408, 2048), (1024, 512),
+                                 (512, 1024)])
+@pytest.mark.parametrize("m", [1, 60])
+def test_bank_shapes_bit_exact(k, n, m):
+    """K1's CPU path equals the JAX reference at the expert-bank (K, N)
+    (moonshot and granite) with int8 activations, as the bank products
+    pass them."""
+    rng = np.random.default_rng(k + n + m)
+    a = rng.integers(-128, 128, (m, k)).astype(np.int8)
+    w = rng.integers(-127, 128, (k, n)).astype(np.int8)
+    ws = (rng.random(n) * 1e-2).astype(np.float32)
+    zero = np.zeros(n, np.float32)
+    want = jref.cim_matmul_ref(
+        jnp.asarray(a), jnp.asarray(w), jnp.float32(0.05), jnp.asarray(ws),
+        jnp.asarray(zero), jnp.float32(1.0))
+    got = cim_ops.cim_matmul(
+        convert.tensor_from_numpy(a), convert.tensor_from_numpy(w), 0.05,
+        convert.tensor_from_numpy(ws))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))

@@ -105,7 +105,7 @@ def _pages(gen, shape, kind):
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
 @pytest.mark.parametrize("g", [1, 4, 8])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 160])
 @pytest.mark.parametrize("bs", [16, 32])
 def test_decode_kernel_matches_plain(hopper, kind, g, d, bs):
     """K2 at split counts 1, 3, the card's heuristic and the table width,
@@ -490,5 +490,107 @@ def test_durable_streams_match_plain(hopper, mode, monkeypatch):
         assert tops.prefill_launches > 0
     _plain_versions(monkeypatch)
     _, want = serve()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+# ---------------------------------------------------------------------------
+# The decoder family's shapes: D = 160, G = 1, MoE expert banks
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+@pytest.mark.parametrize("g,d", [(4, 160), (1, 128)])
+def test_family_attention_shapes_match_plain(hopper, kind, g, d):
+    """K2 and K3 at stablelm-12b's D = 160 (G = 4; K2 pads a token row to
+    32 lanes) and deepseek-7b's G = 1: K2 within 1e-4 of its plain twin at
+    1, 3 and the card's splits; K3 within 1e-3 plus one bf16 ulp, pages
+    bit-exact."""
+    from repro_torch.kernels import autotune
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    b, kvh, bs, w, c = 4, 2, 16, 8, 64
+    nb = b * w + 1
+    tables = (torch.randperm(nb - 1, generator=gen, device="cuda")[:b * w]
+              + 1).reshape(b, w).to(torch.int32)
+    n_valid = torch.tensor([0, 5, 3 * bs + 7, w * bs], dtype=torch.int32,
+                           device="cuda")
+    q = torch.randn(b, kvh, g, d, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    pool = _pages(gen, (nb, bs, kvh, d), kind)
+    card = autotune.heuristic_paged_splits_cuda(b, kvh, w,
+                                                tops.sm_count("cuda"))
+    for splits in (1, 3, card):
+        args = (q, *pool, tables, n_valid)
+        got = tops.merge_splits_kernel(*tops.paged_attention_kernel(
+            *args, kv_splits=splits))
+        want = tops.merge_splits(*tops.paged_attention_plain(
+            *args, kv_splits=splits))
+        assert (got - want).abs().max().item() <= 1e-4, splits
+        assert not got[0].any()
+    pos = torch.tensor([0, 16, 64, 32], dtype=torch.int32, device="cuda")
+    n_tok = torch.tensor([64, 20, 64, 64], dtype=torch.int32, device="cuda")
+    wm = torch.tensor([1, 1, 1, 0], dtype=torch.int32, device="cuda")
+    qp = torch.randn(b, kvh, c * g, d, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    k_new, v_new = (torch.randn(b, c, kvh, d, generator=gen,
+                                device="cuda").to(torch.bfloat16)
+                    for _ in range(2))
+    p1 = [t.clone() if t is not None else None for t in pool]
+    p2 = [t.clone() if t is not None else None for t in pool]
+    got = tops.flash_prefill_kernel(qp, k_new, v_new, *p1, tables, pos,
+                                    n_tok, wm).float()
+    want = tops.flash_prefill_plain(qp, k_new, v_new, *p2, tables, pos,
+                                    n_tok, wm).float()
+    assert bool(((got - want).abs() <= 1e-3 + 2.0 ** -7 * want.abs()).all())
+    for a, b_ in zip(p1, p2):
+        if a is not None:
+            assert torch.equal(a[1:], b_[1:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b",
+                                  "granite-moe-1b-a400m"])
+def test_moe_generate_matches_plain(hopper, arch, monkeypatch):
+    """A reduced MoE model (2 layers, d_model 256, head_dim 64, 8
+    experts) frozen under w8a8_kernel with the router kept float, served
+    greedily by Engine.generate: identical tokens through the kernels and
+    through their plain versions, and K1 launched once per deployed
+    linear: per layer q, k, v, o, one launch per expert and bank (3 E)
+    and the shared experts' three, plus the head, in the prefill and each
+    decode step.  A 64-token prompt is past 4 E = 32 tokens, so the
+    prefill drops tokens at capacity."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.core import backend
+    from repro_torch.models import model as M
+    from repro_torch.serve import Engine
+    cfg = dataclasses.replace(
+        configs.reduced_config(arch, n_layers=2, d_model=256), head_dim=64)
+    plan = backend.DeploymentPlan(
+        rules=(("*router*", backend.LayerRule("exact")),),
+        default="w8a8_kernel")
+    params = M.freeze_params(
+        M.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+               device="cuda"), a_scale=0.05, plan=plan)
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab, (2, 64))
+    new = 8
+
+    def serve():
+        eng = Engine(params, cfg, max_len=96, plan=plan, device="cuda")
+        return [eng.generate({"tokens": p[None]},
+                             max_new_tokens=new).tokens.cpu()
+                for p in prompts]
+
+    cim_ops.launches = 0
+    got = serve()
+    per_layer = 4 + 3 * cfg.moe.n_experts + 3 * bool(
+        cfg.moe.n_shared_experts)
+    assert cim_ops.launches == len(prompts) * (new + 1) * (
+        cfg.n_layers * per_layer + 1)
+    _plain_versions(monkeypatch)
+    want = serve()
     for g, w in zip(got, want):
         assert torch.equal(g, w)

@@ -380,3 +380,55 @@ def test_merge_splits_matches_jax():
         tops.merge_splits(_t(acc), _t(m), _t(l)).numpy(),
         np.asarray(jops.merge_splits(jnp.asarray(acc), jnp.asarray(m),
                                      jnp.asarray(l))), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("g,d", [(1, 128), (4, 160)])
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_and_prefill_plain_at_family_shapes(g, d, int8):
+    """The two new serving shapes: deepseek-7b's MHA (G = 1, D = 128) and
+    stablelm-12b's D = 160 (G = 4).  Decode partials merge to JAX's
+    flash_decode_jnp and its gather reference (1e-5); a prefill chunk's
+    attention matches JAX's emulated kernel (1e-5) and its pages are
+    bit-exact."""
+    b, kvh, bs, w, c = 2, 2, 4, 6, 8
+    nb = b * w + 1
+    rng = np.random.default_rng(d + g)
+    tables = (rng.permutation(nb - 1) + 1).reshape(b, w).astype(np.int32)
+    n_valid = np.array([21, 9], np.int32)
+    q = rng.standard_normal((b, kvh, g, d)).astype(np.float32)
+    (jk, tk), (jv, tv) = _pool(int8, 31, (nb, bs, kvh, d))
+    want = jops.flash_decode_jnp(
+        jnp.asarray(q), *_split(jk), *_split(jv), jnp.asarray(tables),
+        jnp.asarray(n_valid), kv_splits=2)
+    tkq, tks = _split(tk)
+    tvq, tvs = _split(tv)
+    got = tops.merge_splits(*tops.paged_attention_plain(
+        _t(q), tkq, tvq, tks, tvs, _t(tables), _t(n_valid), kv_splits=2))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    q4 = q.reshape(b, 1, kvh * g, d)
+    ref = (jref.dequant_attention_ref if int8 else jref.paged_attention_ref)(
+        jnp.asarray(q4), jk, jv, jnp.asarray(tables), jnp.asarray(n_valid))
+    out = tops.paged_attention(_t(q4), tk, tv, _t(tables), _t(n_valid))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+
+    qp = rng.standard_normal((b, c, kvh * g, d)).astype(np.float32)
+    k_new = rng.standard_normal((b, c, kvh, d)).astype(np.float32)
+    v_new = rng.standard_normal((b, c, kvh, d)).astype(np.float32)
+    pos = np.array([8, 0], np.int32)
+    n_tok = np.array([8, 5], np.int32)
+    wm = np.array([1, 1], np.int32)
+    jout, jk2, jv2 = jops.paged_prefill(
+        jnp.asarray(qp), jnp.asarray(k_new), jnp.asarray(v_new), jk, jv,
+        jnp.asarray(tables), jnp.asarray(pos), jnp.asarray(n_tok),
+        jnp.asarray(wm), backend="emulate")
+    tout, tk2, tv2 = tops.paged_prefill(
+        _t(qp), _t(k_new), _t(v_new), tk, tv, _t(tables), _t(pos),
+        _t(n_tok), _t(wm))
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), rtol=1e-5,
+                               atol=1e-5)
+    for got_p, want_p in ((tk2, jk2), (tv2, jv2)):
+        gq, _ = _split(got_p)
+        wq, _ = _split(want_p)
+        np.testing.assert_array_equal(gq.numpy()[1:], np.asarray(wq)[1:])
