@@ -25,11 +25,11 @@ Phases (each prints one JSON line; any failure exits non-zero):
                kernel (the masked path, the previous design; in turns);
                K5 at every VGG-8 shape beside two library yardsticks
                (f32 torch.bmm, torch._int_mm) and the whole
-               cim_macro_matmul call.  Then the decoder family's
+               cim_macro_matmul call.  Then the model families'
                shapes (the ``kernel_family`` line): K1 bit-exact and timed
                at every deployed (K, N) of deepseek-7b, stablelm-12b,
-               h2o-danube-3-4b, granite-moe-1b-a400m and
-               moonshot-v1-16b-a3b at M = 8 and 512; K2 and K3 at
+               h2o-danube-3-4b, granite-moe-1b-a400m, moonshot-v1-16b-a3b,
+               mamba2-1.3b and zamba2-2.7b at M = 8 and 512; K2 and K3 at
                deepseek-7b's G = 1 and stablelm-12b's D = 160.
 4. main     -- serves 8 requests through the port's ContinuousEngine at
                qwen3-8b's widths (w8a8_kernel plan, paged attention,
@@ -40,7 +40,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
                split into decode and prefill calls, its own line), and
                replays the requests through the plain versions.
 5. static   -- the static engine (Engine.generate over dense KV caches)
-               on the same model and prompts, one call per prompt:
+               on the same model cut to 18 of its 36 layers (its runs are
+               host-bound) and the same prompts, one call per prompt:
                greedy with the kernels (K1 must launch on every linear),
                greedy with the plain versions (prefill logits gated as in
                main), twice sampled with one key (identical streams); the
@@ -73,11 +74,20 @@ Phases (each prints one JSON line; any failure exits non-zero):
                the ContinuousEngine (chunked prefill 64, paged attention,
                int8 pool, the main phase's 8 prompts, 16 new), and
                stablelm-12b once more through Engine.generate with a
-               2560-token prompt (attend_chunked).  Each run: every
-               request OK, K1 launched exactly (stack passes) x (layers x
-               its per-layer count + the head), K2/K3 on the continuous
-               runs, prefill logits within 1.5x the reordering floor;
-               tokens per wall second, decode-step ms, peak memory.
+               2560-token prompt (attend_chunked); the state-space
+               families at full depth through Engine.generate, 32 new:
+               mamba2-1.3b (48 SSM layers) and zamba2-2.7b (54 SSM layers
+               and a shared attention block over 9 int8 KV caches), each
+               with prompts of 64, 192, 512 and 1024 tokens, a batch of
+               four 512-token prompts and one 4096-token prompt (16 SSD
+               chunks), and one profiler pass over mamba2's decode steps.
+               Each run: every request OK, K1 launched exactly (stack
+               passes) x (its per-pass count: layers x per-layer count,
+               the shared block's 7 a group, the head), K2/K3 on the
+               continuous runs, prefill logits within 1.5x the
+               reordering floor (bit-identical to the plain versions' on
+               the state-space runs); tokens per wall second,
+               decode-step ms, peak memory.
 9. vgg8     -- the paper's VGG-8 deployment path (repro_torch.launch.fig10)
                at its published widths with random weights from a seed:
                w8a8_kernel (with and without residency) and
@@ -1840,11 +1850,20 @@ FAMILY_RUNS = (
     ("swa", "h2o-danube-3-4b", None, "generate"),
     ("dense-g1", "deepseek-7b", 4, "continuous"),
     ("dense-d160", "stablelm-12b", 4, "continuous"),
+    ("ssm", "mamba2-1.3b", None, "generate"),
+    ("hybrid", "zamba2-2.7b", None, "generate"),
 )
 FAMILY_MOE_PROMPTS = (64, 192, 320, 512)   # whole 64-token chunks
 FAMILY_SWA_PROMPT = 4608                   # past the 4096 window, 9 x 512
 FAMILY_LONG_PROMPT = 2560                  # past chunked_threshold 2048
-FAMILY_NEW = {"generate": 16, "swa": 32, "continuous": 16}
+# The state-space runs: one call per prompt (each a multiple of min(256,
+# S), the SSD chunk; 320 is not), one call of a batch of four 512-token
+# prompts, and one 4096-token prompt (16 chunks).
+FAMILY_SSM_PROMPTS = (64, 192, 512, 1024)
+FAMILY_SSM_BATCH = (4, 512)
+FAMILY_SSM_LONG = 4096
+FAMILY_NEW = {"generate": 16, "swa": 32, "continuous": 16, "ssm": 32}
+RECURRENT = ("ssm", "hybrid")
 
 
 def family_plan():
@@ -1869,27 +1888,35 @@ def family_params(torch, cfg, plan, device):
     """Random weights from seed 0, frozen under ``plan`` one block at a
     time, so no more than one block's bf16 masters is ever held beside
     the int8 model (moonshot-v1-16b-a3b is ~28 B parameters at 48
-    layers).  Returns (params, init seconds)."""
+    layers); a hybrid's shared attention block is made after its SSM
+    blocks.  Returns (params, init seconds)."""
     from repro_torch.models import layers as L
     from repro_torch.models import model as M
     from repro_torch.models import transformer as T
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(0)
     dt = torch.bfloat16
-    init = T.init_moe_block if cfg.arch_type == "moe" else T.init_dense_block
-    blocks = []
+    init = {"moe": T.init_moe_block, "ssm": T.init_ssm_block,
+            "hybrid": T.init_ssm_block}.get(cfg.arch_type,
+                                            T.init_dense_block)
+    stack = {}
     for _ in range(cfg.n_layers):
         blk = {"stack": {"blocks": [init(gen, cfg, dt, device=device)]}}
-        blocks += M.freeze_params(blk, a_scale=0.05,
-                                  plan=plan)["stack"]["blocks"]
+        stack.setdefault("blocks", []).extend(M.freeze_params(
+            blk, a_scale=0.05, plan=plan)["stack"]["blocks"])
         del blk
+    if cfg.arch_type == "hybrid":
+        stack["shared_attn"] = M.freeze_params(
+            {"stack": {"shared_attn": T.init_dense_block(
+                gen, cfg, dt, device=device)}},
+            a_scale=0.05, plan=plan)["stack"]["shared_attn"]
     params = M.freeze_params({
         "embed": L.init_embedding(gen, cfg.padded_vocab, cfg.d_model, dt,
                                   device=device),
         "final_norm": L.init_rmsnorm(cfg.d_model, device=device),
         "lm_head": L.init_lm_head(gen, cfg.d_model, cfg.padded_vocab, dt,
                                   device=device)}, a_scale=0.05, plan=plan)
-    params["stack"] = {"blocks": blocks}
+    params["stack"] = stack
     if device == "cuda":
         torch.cuda.synchronize()
     return params, time.perf_counter() - t0
@@ -1897,18 +1924,37 @@ def family_params(torch, cfg, plan, device):
 
 def k1_per_layer(cfg) -> int:
     """K1 launches of one block's pass: q, k, v, o, then the MLP's three,
-    or three per expert (one per bank) and the shared experts' three."""
+    or three per expert (one per bank) and the shared experts' three; an
+    SSM block's in_proj and out_proj."""
+    if cfg.arch_type in RECURRENT:
+        return 2
     if cfg.arch_type != "moe":
         return 7
     return 4 + 3 * cfg.moe.n_experts + 3 * bool(cfg.moe.n_shared_experts)
 
 
+def k1_per_pass(cfg) -> int:
+    """K1 launches of one stack pass (a prefill or a decode step): every
+    block's, a hybrid's shared attention block once a group (a dense
+    block's 7), and the head."""
+    shared = (7 * (cfg.n_layers // cfg.hybrid_attn_interval)
+              if cfg.arch_type == "hybrid" else 0)
+    return cfg.n_layers * k1_per_layer(cfg) + shared + 1
+
+
 def linear_shapes(cfg) -> list:
     """(K, N) of every deployed linear of ``cfg``: q, k/v, o, the MLP or
-    the expert banks, the shared experts and the head."""
+    the expert banks, the shared experts and the head; an SSM block's
+    in_proj (d -> z, x, B, C, dt) and out_proj."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
-    kn = {(d, cfg.n_heads * hd), (d, cfg.n_kv_heads * hd),
-          (cfg.n_heads * hd, d), (d, cfg.padded_vocab)}
+    kn = {(d, cfg.padded_vocab)}
+    if cfg.ssm is not None:
+        di, n = cfg.ssm.d_inner(d), cfg.ssm.d_state
+        kn |= {(d, 2 * di + 2 * n + cfg.ssm.n_heads(d)), (di, d)}
+        if cfg.arch_type == "ssm":
+            return sorted(kn)
+    kn |= {(d, cfg.n_heads * hd), (d, cfg.n_kv_heads * hd),
+           (cfg.n_heads * hd, d)}
     ff = cfg.moe.d_ff_expert if cfg.moe else cfg.d_ff
     kn |= {(d, ff), (ff, d)}
     if cfg.moe and cfg.moe.n_shared_experts:
@@ -1918,17 +1964,20 @@ def linear_shapes(cfg) -> list:
 
 
 @contextlib.contextmanager
-def counted_passes(T):
+def counted_passes(T, M):
     """Count the stack passes (``transformer.decode_stack``: a prefill, a
-    prefill chunk or a decode step; each ends in one head call)."""
+    prefill chunk or a decode step; ``model._prefill_stack``: an ssm or
+    hybrid prefill; each ends in one head call)."""
     n = [0]
-    fn = T.decode_stack
 
-    def counting(*a, **k):
-        n[0] += 1
-        return fn(*a, **k)
+    def counting(fn):
+        def wrapped(*a, **k):
+            n[0] += 1
+            return fn(*a, **k)
+        return wrapped
 
-    with swapped(T, "decode_stack", counting):
+    with swapped(T, "decode_stack", counting(T.decode_stack)), \
+            swapped(M, "_prefill_stack", counting(M._prefill_stack)):
         yield n
 
 
@@ -1963,10 +2012,10 @@ FAMILY_ATTENTION = (("deepseek-7b", 32, 1, 128), ("stablelm-12b", 8, 4, 160))
 
 
 def family_k1(torch, timer, ops, gen) -> list:
-    """K1 at every deployed (K, N) of the five family models (published
-    widths): bit-exact to its plain version at decode M = 8 and prefill M
-    = 512, f32 and int8 input, then timed (f32 input) beside its plain
-    version, the ``torch._int_mm`` yardstick and its bound."""
+    """K1 at every deployed (K, N) of the family models (FAMILY_RUNS,
+    published widths): bit-exact to its plain version at decode M = 8 and
+    prefill M = 512, f32 and int8 input, then timed (f32 input) beside its
+    plain version, the ``torch._int_mm`` yardstick and its bound."""
     dev = "cuda"
     shapes = {}
     for _, arch, _, _ in FAMILY_RUNS:
@@ -2088,16 +2137,63 @@ def family_prompts(torch, cfg, lens, seed=3):
     return [torch.randint(0, cfg.vocab, (n,), generator=rng) for n in lens]
 
 
+def family_batches(torch, cfg):
+    """The Engine.generate runs' prompt batches ([B, S] token tensors, one
+    call each) and new tokens per call: the state-space runs' prompts,
+    batch and long prompt; one 4608-token prompt for a sliding window;
+    otherwise four prompts of 64-512."""
+    if cfg.arch_type in RECURRENT:
+        n, s = FAMILY_SSM_BATCH
+        return ([p[None] for p in family_prompts(torch, cfg,
+                                                 FAMILY_SSM_PROMPTS)]
+                + [torch.stack(family_prompts(torch, cfg, (s,) * n,
+                                              seed=4))]
+                + [family_prompts(torch, cfg, (FAMILY_SSM_LONG,),
+                                  seed=5)[0][None]],
+                FAMILY_NEW["ssm"])
+    if cfg.sliding_window:
+        return ([p[None] for p in family_prompts(
+            torch, cfg, (FAMILY_SWA_PROMPT,))], FAMILY_NEW["swa"])
+    return ([p[None] for p in family_prompts(torch, cfg,
+                                             FAMILY_MOE_PROMPTS)],
+            FAMILY_NEW["generate"])
+
+
+def decode_profile(torch, steps) -> dict:
+    """One torch.profiler pass (device activity) over ``steps()``, a few
+    synchronized decode steps: device time by the port's kernels and the
+    rest, the busy share of the wall, and the ten kernels that take most
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        steps()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    top = sorted((ev for ev in prof.key_averages()
+                  if ev.self_device_time_total),
+                 key=lambda ev: -ev.self_device_time_total)[:10]
+    return {"wall_ms": wall * 1e3,
+            **device_time_by_kernel(prof, wall),
+            "top_kernels": [{"name": ev.key[:160], "calls": ev.count,
+                             "ms": ev.self_device_time_total / 1e3}
+                            for ev in top]}
+
+
 def family_run(torch, name, cfg, path, cim_ops, paged_ops, *,
                device="cuda", long_prompt=None):
     """One run of the families phase: serve ``cfg`` at its widths, gate it
-    and time it.  ``path`` "generate" serves each prompt by one
-    Engine.generate call (greedy, int8 dense cache or the bf16 ring);
-    "continuous" serves the main phase's 8 requests through a
-    ContinuousEngine with chunked prefill of 64, paged attention and an
-    int8 pool, then ``long_prompt`` (if any) through Engine.generate.
-    Returns (result, launches, failures)."""
+    and time it.  ``path`` "generate" serves each prompt batch of
+    ``family_batches`` by one Engine.generate call (greedy, int8 dense
+    cache, the bf16 ring, or the recurrent states); "continuous" serves
+    the main phase's 8 requests through a ContinuousEngine with chunked
+    prefill of 64, paged attention and an int8 pool, then ``long_prompt``
+    (if any) through Engine.generate.  The state-space runs' prefill
+    logits must equal the plain versions' bit for bit (K1 is exact and
+    the rest is shared code).  Returns (result, launches, failures)."""
     from repro_torch.models import attention as attn_lib
+    from repro_torch.models import model as M
     from repro_torch.models import transformer as T
     from repro_torch.serve import ContinuousEngine, Engine, RequestStatus, prng
 
@@ -2110,7 +2206,8 @@ def family_run(torch, name, cfg, path, cim_ops, paged_ops, *,
         torch.cuda.reset_peak_memory_stats()
     plan = family_plan()
     params, init_s = family_params(torch, cfg, plan, device)
-    per_pass = cfg.n_layers * k1_per_layer(cfg) + 1
+    per_pass = k1_per_pass(cfg)
+    recurrent = cfg.arch_type in RECURRENT
     failures, runs = [], {}
     total = dict.fromkeys(read_launches(cim_ops, paged_ops), 0)
     pf_logits = {"kernel": [], "plain": [], "reorder": []}
@@ -2119,7 +2216,7 @@ def family_run(torch, name, cfg, path, cim_ops, paged_ops, *,
     def served(tag, fn, n_prompts_tokens):
         """Run ``fn`` with the counts at 0; check K1 = passes x per_pass."""
         reset_launches(cim_ops, paged_ops)
-        with counted_passes(T) as passes:
+        with counted_passes(T, M) as passes:
             sync()
             t0 = time.perf_counter()
             out, n_tok = fn()
@@ -2143,34 +2240,45 @@ def family_run(torch, name, cfg, path, cim_ops, paged_ops, *,
                          / max(1, passes[0] * cfg.n_layers))}
         return out, passes[0]
 
-    def generate(prompts, new):
-        max_len = max(len(p) for p in prompts) + new + 32
+    def generate(batches, new):
+        max_len = max(b.shape[1] for b in batches) + new + 32
         eng = Engine(params, cfg, max_len=max_len, plan=plan, device=device)
 
         def fn():
-            outs = [eng.generate({"tokens": p[None].to(device)},
-                                 max_new_tokens=new).tokens[0].cpu()
-                    for p in prompts]
-            return outs, sum(len(o) for o in outs)
+            outs = [eng.generate({"tokens": b.to(device)},
+                                 max_new_tokens=new).tokens.cpu()
+                    for b in batches]
+            return outs, sum(o.numel() for o in outs)
 
-        outs, n_passes = served("generate", fn, sum(map(len, prompts)))
+        outs, n_passes = served("generate", fn,
+                                sum(b.numel() for b in batches))
         # A prefill and ``new`` decode steps per call.
-        if n_passes != len(prompts) * (new + 1):
+        if n_passes != len(batches) * (new + 1):
             failures.append(f"{name}: {n_passes} stack passes, not "
-                            f"{len(prompts) * (new + 1)}")
+                            f"{len(batches) * (new + 1)}")
         prefill = eng.prefill_fn(plan)
-        for p, o in zip(prompts, outs):
-            batch = eng.bucket({"tokens": p[None].to(device)})
-            pf_logits["kernel"].append(
-                prefill(params, batch)[0][0, -1, :cfg.vocab].float())
+
+        def last_logits(batch):
+            return prefill(params, batch)[0][:, -1, :cfg.vocab].float()
+
+        for b, o in zip(batches, outs):
+            batch = eng.bucket({"tokens": b.to(device)})
+            lk = last_logits(batch)
             with plain_versions(cim_ops, paged_ops):
-                pf_logits["plain"].append(
-                    prefill(params, batch)[0][0, -1, :cfg.vocab].float())
-                with reordered_attention(attn_lib):
-                    pf_logits["reorder"].append(
-                        prefill(params, batch)[0][0, -1, :cfg.vocab].float())
-            first_kernel.append(o)
-            gated_prompts.append(len(p))
+                lp = last_logits(batch)
+                # The state-space runs are held to bit-identity: a floor
+                # of 0, so logit_gate fails any kernel-vs-plain difference.
+                if recurrent:
+                    lr = lp
+                else:
+                    with reordered_attention(attn_lib):
+                        lr = last_logits(batch)
+            for row in range(b.shape[0]):
+                pf_logits["kernel"].append(lk[row])
+                pf_logits["plain"].append(lp[row])
+                pf_logits["reorder"].append(lr[row])
+                first_kernel.append(o[row])
+                gated_prompts.append(b.shape[1])
         return eng
 
     result = {"phase": "families", "run": name, "arch": cfg.name,
@@ -2183,11 +2291,9 @@ def family_run(torch, name, cfg, path, cim_ops, paged_ops, *,
               "moe": dataclasses.asdict(cfg.moe) if cfg.moe else None,
               "init_s": init_s}
     if path == "generate":
-        lens = ((FAMILY_SWA_PROMPT,) if cfg.sliding_window
-                else FAMILY_MOE_PROMPTS)
-        new = FAMILY_NEW["swa" if cfg.sliding_window else "generate"]
-        eng = generate(family_prompts(torch, cfg, lens), new)
-        step_prompt = family_prompts(torch, cfg, lens)[-1]
+        batches, new = family_batches(torch, cfg)
+        eng = generate(batches, new)
+        step_prompt = batches[-1][0]
     else:
         reqs = [dataclasses.replace(r, max_new=FAMILY_NEW["continuous"])
                 for r in serving_requests(torch, cfg)]
@@ -2231,8 +2337,9 @@ def family_run(torch, name, cfg, path, cim_ops, paged_ops, *,
         eng = None
         step_prompt = torch.as_tensor(reqs[0].prompt)
         if long_prompt:
-            eng = generate(family_prompts(torch, cfg, (long_prompt,)),
-                           FAMILY_NEW["generate"])
+            eng = generate(
+                [family_prompts(torch, cfg, (long_prompt,))[0][None]],
+                FAMILY_NEW["generate"])
     gate, gate_failures = logit_gate(
         torch, pf_logits, first_kernel,
         [[int(lp.argmax())] for lp in pf_logits["plain"]], run_floor=True)
@@ -2255,11 +2362,25 @@ def family_run(torch, name, cfg, path, cim_ops, paged_ops, *,
     for t in range(8):
         tok, _, _, caches = step(params, tok, caches, key, rids, t + 2, temp)
     sync()
+    step_ms = (time.perf_counter() - t0) / 8 * 1e3
+    if device == "cuda" and cfg.arch_type == "ssm":
+        # Where a decode step's device time goes: the SSD's and the
+        # block's PyTorch kernels against K1, and the busy share.
+        def steps():
+            nonlocal tok, caches
+            for t in range(8):
+                tok, _, _, caches = step(params, tok, caches, key, rids,
+                                         t + 10, temp)
+        result["decode_profile"] = decode_profile(torch, steps)
+    published = family_config(cfg.name, None).n_layers
     result.update({
         "runs": runs, "gated_prompt_lens": gated_prompts,
-        "decode_step_ms_b1": (time.perf_counter() - t0) / 8 * 1e3,
+        "decode_step_ms_b1": step_ms,
         "decode_step_prompt": len(step_prompt),
-        "k1_per_layer_step": k1_per_layer(cfg), "launches": total,
+        "depth_cut": (None if cfg.n_layers == published
+                      else f"{cfg.n_layers} of {published} layers"),
+        "k1_per_layer_step": k1_per_layer(cfg), "k1_per_pass": per_pass,
+        "launches": total,
         **gate,
         "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
                         if device == "cuda" else None)})
@@ -2523,7 +2644,7 @@ def main() -> int:
         entry["check_s"] = time.perf_counter() - t
         kernels.append(entry)
         emit({"phase": "kernel", **entry})
-    # The decoder family's shapes: K1 at every new (K, N), K2 and K3 at G
+    # The model families' shapes: K1 at every new (K, N), K2 and K3 at G
     # = 1 and D = 160.
     t = time.perf_counter()
     by_name = {k["name"]: k for k in kernels}

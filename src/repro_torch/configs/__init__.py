@@ -1,7 +1,8 @@
 """Config registry for the PyTorch port: ``get_config`` and the reduced
-smoke variants.  The decoder-only dense and MoE families are registered
-(the JAX package's order); mamba2, zamba2, whisper and qwen2-vl arrive
-with their model slices.  The paper's
+smoke variants.  The decoder-only dense and MoE families and the
+state-space families (mamba2's SSM stack, zamba2's hybrid) are
+registered (the JAX package's order); whisper and qwen2-vl arrive with
+their model slices.  The paper's
 VGG-8 deployment lives beside them, as in the JAX package:
 ``repro_torch.configs.vgg8_cifar10.config()``."""
 from __future__ import annotations
@@ -19,6 +20,8 @@ ARCH_IDS = (
     "qwen3-8b",
     "h2o-danube-3-4b",
     "deepseek-7b",
+    "mamba2-1.3b",
+    "zamba2-2.7b",
 )
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}

@@ -16,9 +16,9 @@ Usage:
 
 ``--arch`` takes any of ``repro_torch.configs.ARCH_IDS`` (qwen3-8b,
 deepseek-7b, stablelm-12b, h2o-danube-3-4b, granite-moe-1b-a400m,
-moonshot-v1-16b-a3b).  MoE and sliding-window archs are served by the
-static engine only: ``--continuous`` refuses them with the JAX
-package's message.  Like the JAX launcher it serves the arch's reduced
+moonshot-v1-16b-a3b, mamba2-1.3b, zamba2-2.7b).  MoE, sliding-window,
+ssm and hybrid archs are served by the static engine only:
+``--continuous`` refuses them with the JAX package's message.  Like the JAX launcher it serves the arch's reduced
 config with random weights (seeded).  Without ``--continuous`` it is the static engine:
 ``--batch`` prompts of ``--prompt-len`` tokens drawn from
 ``PRNGKey(1)`` (``serve/prng.py``, the JAX launcher's prompts), one

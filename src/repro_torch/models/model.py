@@ -1,6 +1,6 @@
 """LM wrapper: embeddings -> stack -> final norm -> head (port of the
 serving entry points of ``repro/models/model.py`` for the dense and MoE
-decoder families).
+decoder families and the ssm and hybrid state-space families).
 
   init(cfg, generator, device)                 -> params
   freeze_params(params, a_scale, plan)         -> deployed params
@@ -139,9 +139,10 @@ def prefill(params, batch, cfg, *, max_len: int, mode=None):
     (``Engine.bucket``): logits are taken at ``length - 1`` and the write
     cursor is rewound past the pads, so decode overwrites them and the
     length masks exclude them: dense archs only, as in the JAX package
-    (MoE capacity counts the pads).  The JAX package's ``_prefill_stack``
-    for dense and MoE archs is the stack pass over the dense cache,
-    ``transformer.decode_stack``."""
+    (MoE capacity counts the pads; SSM state would integrate them).  The
+    JAX package's ``_prefill_stack`` for dense and MoE archs is the stack
+    pass over the dense cache, ``transformer.decode_stack``; ssm and
+    hybrid archs take :func:`_prefill_stack`."""
     tokens = batch["tokens"]
     if batch.get("length") is not None and cfg.arch_type != "dense":
         raise ValueError("bucketed prefill (batch['length']) is "
@@ -151,8 +152,9 @@ def prefill(params, batch, cfg, *, max_len: int, mode=None):
     b, s = x.shape[:2]
     caches = transformer.init_caches(cfg, b, max_len, _dtype(cfg),
                                      device=dev)
-    h, caches = transformer.decode_stack(params["stack"], x, cfg, caches,
-                                         mode=mode)
+    stack = (_prefill_stack if cfg.arch_type in ("ssm", "hybrid")
+             else transformer.decode_stack)
+    h, caches = stack(params["stack"], x, cfg, caches, mode=mode)
     length = batch.get("length")
     if length is None:
         h_last = h[:, -1:]
@@ -162,6 +164,18 @@ def prefill(params, batch, cfg, *, max_len: int, mode=None):
         caches["kv"]["len"].sub_((s - length).to(torch.int32))
     h = layers.rmsnorm(params["final_norm"], h_last, cfg.norm_eps)
     return logits_fn(params, h, cfg, mode), caches
+
+
+def _prefill_stack(params, x, cfg, caches, *, mode=None):
+    """The ssm and hybrid stacks' prefill: every SSM layer runs the
+    chunked SSD scan over the whole prompt with ``return_final_state``
+    and leaves its recurrent and conv states in ``caches`` (in place); a
+    hybrid's shared attention block fills its group's KV cache.  (A
+    decode step's recurrence reads one token, so the prompt cannot go
+    through ``decode_stack``.)  The prompt length must be a multiple of
+    ``min(cfg.ssm.chunk, S)``.  Returns (hidden, caches)."""
+    return transformer.recurrent_stack(params, x, cfg, caches, mode=mode,
+                                       prefill=True), caches
 
 
 def prefill_paged(params, batch, cfg, *, pages, block_table, max_len: int,

@@ -1,13 +1,21 @@
-"""Decoder blocks and the layer stack (port of the ``dense`` and ``moe``
-families of ``repro/models/transformer.py``; ``ssm``, ``hybrid`` and
-``encdec`` raise until their slices).
+"""Decoder blocks and the layer stack (port of the ``dense``, ``moe``,
+``ssm`` and ``hybrid`` families of ``repro/models/transformer.py``;
+``encdec`` raises until its slice).
+
+  dense   pre-norm attn + MLP residual blocks
+  moe     pre-norm attn + MoE FFN
+  ssm     Mamba-2 residual blocks (mamba2-1.3b)
+  hybrid  Mamba-2 backbone + one weight-SHARED attention block applied at
+          the start of every group of ``hybrid_attn_interval`` layers
+          (zamba2: shared weights, a KV cache per group)
 
 The JAX package stacks layers on a leading ``[L, ...]`` axis for
 ``lax.scan``; here ``params["blocks"]`` is a list of per-layer dicts and
 the stack is a Python loop.  The paged KV pool keeps its leading layer
 axis (``[L, NB, BS, KVH, D]``), as do the dense caches of
-``Engine.generate``, and each layer works on its ``[l]`` view, so in-place
-writes land in the shared tensors.
+``Engine.generate`` and the recurrent states (``[L, B, H, P, N]``; a
+hybrid's KV caches have one entry per group), and each layer works on its
+``[l]`` view, so in-place writes land in the shared tensors.
 """
 from __future__ import annotations
 
@@ -15,7 +23,7 @@ import torch
 
 from repro_torch.core import quant
 from repro_torch.models import attention as attn_lib
-from repro_torch.models import layers
+from repro_torch.models import layers, mamba2
 from repro_torch.models import moe as moe_lib
 
 
@@ -66,16 +74,42 @@ def moe_block(p, x, cfg, *, cache=None, mode=None):
     return x + y, new_cache, aux["aux_loss"]
 
 
+def init_ssm_block(generator, cfg, dtype, *, device="cpu") -> dict:
+    return {
+        "norm": layers.init_rmsnorm(cfg.d_model, device=device),
+        "mamba": mamba2.init_mamba2(generator, cfg.d_model, cfg.ssm, dtype,
+                                    device=device),
+    }
+
+
+def ssm_block(p, x, cfg, *, state=None, mode=None,
+              return_final_state: bool = False):
+    h, new_state = mamba2.mamba2_block(
+        p["mamba"], layers.rmsnorm(p["norm"], x, cfg.norm_eps), cfg,
+        state=state, mode=mode, return_final_state=return_final_state)
+    return x + h, new_state
+
+
 def _arch(cfg) -> str:
     """The ported arch families (the JAX package's dispatch); the rest
     raise, by name."""
     at = cfg.arch_type
-    if at in ("dense", "moe"):
+    if at in ("dense", "moe", "ssm", "hybrid"):
         return at
-    if at in ("ssm", "hybrid", "encdec"):
+    if at == "encdec":
         raise NotImplementedError(
             f"arch_type {at!r} is not ported yet (ROADMAP queue 1)")
     raise ValueError(f"unknown arch_type {at!r}")
+
+
+def _n_groups(cfg) -> int:
+    """A hybrid stack's groups of ``hybrid_attn_interval`` layers (the
+    JAX package reshapes the layer axis into them)."""
+    interval = cfg.hybrid_attn_interval
+    if interval <= 0 or cfg.n_layers % interval:
+        raise ValueError(f"hybrid stack: {cfg.n_layers} layers do not split "
+                         f"into groups of {interval}")
+    return cfg.n_layers // interval
 
 
 def _block(blk, x, cfg, *, cache=None, mode=None):
@@ -89,15 +123,58 @@ def _block(blk, x, cfg, *, cache=None, mode=None):
 
 def init_stack(generator, cfg, dtype=torch.bfloat16, *, device="cpu"
                ) -> dict:
-    init = init_moe_block if _arch(cfg) == "moe" else init_dense_block
-    return {"blocks": [init(generator, cfg, dtype, device=device)
-                       for _ in range(cfg.n_layers)]}
+    """``{"blocks": [per-layer dicts]}``; a hybrid stack adds its one
+    ``shared_attn`` dense block."""
+    at = _arch(cfg)
+    init = {"moe": init_moe_block, "ssm": init_ssm_block,
+            "hybrid": init_ssm_block}.get(at, init_dense_block)
+    stack = {"blocks": [init(generator, cfg, dtype, device=device)
+                        for _ in range(cfg.n_layers)]}
+    if at == "hybrid":
+        _n_groups(cfg)
+        stack["shared_attn"] = init_dense_block(generator, cfg, dtype,
+                                                device=device)
+    return stack
+
+
+def recurrent_stack(params, x, cfg, caches: dict, *, mode=None,
+                    prefill: bool = False):
+    """The ssm and hybrid stacks over their caches, updated in place:
+    ``caches["ssm"]`` ``{ssm [L,B,H,P,N] f32, conv [L,B,K-1,C]}`` and, for
+    a hybrid, ``caches["kv"]`` with one dense KV cache per group.  Group
+    *g* starts with the shared attention block over KV cache *g*, then
+    runs its SSM layers.  ``prefill`` runs each SSM layer's chunked scan
+    over the whole prompt and stores its final states (the JAX package's
+    ``_prefill_stack``); otherwise each layer takes one recurrent step
+    (``decode_stack``).  Returns the hidden states."""
+    states = caches["ssm"]
+    kv = caches.get("kv")
+    interval = cfg.hybrid_attn_interval
+    for i, blk in enumerate(params["blocks"]):
+        if cfg.arch_type == "hybrid" and i % interval == 0:
+            x, _ = dense_block(params["shared_attn"], x, cfg, mode=mode,
+                               cache={name: t[i // interval]
+                                      for name, t in kv.items()})
+        state = None if prefill else {name: t[i]
+                                      for name, t in states.items()}
+        x, new = ssm_block(blk, x, cfg, state=state, mode=mode,
+                           return_final_state=prefill)
+        for name, t in states.items():
+            t[i].copy_(new[name])
+    return x
 
 
 def apply_stack(params, x, cfg, *, mode=None):
     """Full-sequence forward (no caches).  Returns (hidden, aux_loss): the
-    MoE layers' summed Switch loss, 0 for a dense stack."""
-    _arch(cfg)
+    MoE layers' summed Switch loss, 0 for the other stacks."""
+    at = _arch(cfg)
+    if at in ("ssm", "hybrid"):
+        interval = cfg.hybrid_attn_interval
+        for i, blk in enumerate(params["blocks"]):
+            if at == "hybrid" and i % interval == 0:
+                x, _ = dense_block(params["shared_attn"], x, cfg, mode=mode)
+            x, _ = ssm_block(blk, x, cfg, mode=mode)
+        return x, 0.0
     aux = 0.0
     for blk in params["blocks"]:
         x, a = _block(blk, x, cfg, mode=mode)
@@ -114,30 +191,42 @@ def _layer(pages, i):
 
 def init_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
                 device="cpu") -> dict:
-    """Zero dense caches for ``Engine.generate``: ``{"kv": {k, v, len[,
-    k_scale, v_scale]}}`` with a leading layer axis (``len`` is ``[L]``
-    int32).  An int8 cache (``cfg.kv_cache_dtype == "int8"``) stores codes
-    with bf16 per-token-head scales; otherwise the model's ``dtype``.  A
+    """Zero caches for ``Engine.generate``.  Attention stacks get dense KV
+    caches ``{"kv": {k, v, len[, k_scale, v_scale]}}`` with a leading
+    layer axis (``len`` is ``[L]`` int32).  An int8 cache
+    (``cfg.kv_cache_dtype == "int8"``) stores codes with bf16
+    per-token-head scales; otherwise the model's ``dtype``.  A
     sliding-window model gets a ring of ``min(max_len, window)``
     positions, always in ``dtype`` (a window turns the int8 cache off, as
-    in the JAX package)."""
-    _arch(cfg)
+    in the JAX package).  An ssm stack gets ``{"ssm": {ssm, conv}}``
+    (``[L, ...]`` recurrent states: f32, the conv's in ``dtype``); a
+    hybrid both, its ``kv`` with one entry per group."""
+    at = _arch(cfg)
+    caches = {}
+    if at in ("ssm", "hybrid"):
+        st = mamba2.init_mamba_state(batch, cfg.d_model, cfg.ssm, dtype,
+                                     device=device)
+        caches["ssm"] = {name: t.new_zeros((cfg.n_layers, *t.shape))
+                         for name, t in st.items()}
+        if at == "ssm":
+            return caches
+    n = _n_groups(cfg) if at == "hybrid" else cfg.n_layers
     kv_len = max_len
     if cfg.sliding_window is not None:
         kv_len = min(max_len, cfg.sliding_window)
     int8 = (getattr(cfg, "kv_cache_dtype", "bf16") == "int8"
             and cfg.sliding_window is None)
-    shape = (cfg.n_layers, batch, kv_len, cfg.n_kv_heads,
-             cfg.resolved_head_dim)
+    shape = (n, batch, kv_len, cfg.n_kv_heads, cfg.resolved_head_dim)
     store = torch.int8 if int8 else dtype
     kv = {"k": torch.zeros(shape, dtype=store, device=device),
           "v": torch.zeros(shape, dtype=store, device=device),
-          "len": torch.zeros(cfg.n_layers, dtype=torch.int32, device=device)}
+          "len": torch.zeros(n, dtype=torch.int32, device=device)}
     if int8:
         for name in ("k_scale", "v_scale"):
             kv[name] = torch.zeros(shape[:-1], dtype=torch.bfloat16,
                                    device=device)
-    return {"kv": kv}
+    caches["kv"] = kv
+    return caches
 
 
 def decode_stack(params, x, cfg, caches: dict, *, mode=None):
@@ -145,9 +234,12 @@ def decode_stack(params, x, cfg, caches: dict, *, mode=None):
     paged pool or a dense cache.  ``caches["kv"]`` holds the pool ``{k,
     v}`` or the dense cache ``{k, v, len[, k_scale, v_scale]}``, each with
     a leading layer axis; a pool's block tables / lengths / write mask /
-    chunk lengths / decode pages per split are layer-invariant.  Caches are updated in place;
-    returns (hidden, caches)."""
-    _arch(cfg)
+    chunk lengths / decode pages per split are layer-invariant.  An ssm or
+    hybrid stack takes one recurrent step (S == 1) over its states
+    (``recurrent_stack``).  Caches are updated in place; returns (hidden,
+    caches)."""
+    if _arch(cfg) in ("ssm", "hybrid"):
+        return recurrent_stack(params, x, cfg, caches, mode=mode), caches
     if "block_tables" not in caches:
         kv = caches["kv"]
         for i, blk in enumerate(params["blocks"]):

@@ -1,5 +1,6 @@
-"""Serving engine: bucketed prefill into dense KV caches, then decode with
-greedy or seeded sampling (port of ``repro/serve/engine.py``).
+"""Serving engine: bucketed prefill into dense KV caches (or, for the ssm
+and hybrid archs, recurrent states beside them), then decode with greedy
+or seeded sampling (port of ``repro/serve/engine.py``).
 
 * **Bucketed prefill** -- prompt lengths are right-padded to
   ``seq_bucket`` multiples with the true length threaded to

@@ -223,8 +223,8 @@ def test_unported_dense_shapes_raise():
     """Sliding windows get a ring cache of min(max_len, window) positions
     and prompts over 2048 tokens go through attend_chunked, which keeps
     the JAX package's requirement of whole 512-token query chunks (a
-    2049-token prompt raises where JAX asserts).  The families not ported
-    yet raise by name, never fall back."""
+    2049-token prompt raises where JAX asserts).  The family not ported
+    yet (encdec) raises by name, never falls back."""
     from repro_torch.models import transformer
     tc = tcfg.reduced_config("qwen3-8b", n_layers=1)
     params = TM.init(tc, torch.Generator().manual_seed(0), device="cpu")
@@ -234,8 +234,6 @@ def test_unported_dense_shapes_raise():
     toks = torch.zeros(1, 2049, dtype=torch.long)
     with pytest.raises(ValueError, match="q_chunk"):
         TM.prefill(params, {"tokens": toks}, tc, max_len=2056)
-    for arch_type in ("ssm", "hybrid", "encdec"):
-        with pytest.raises(NotImplementedError, match=arch_type):
-            transformer.init_caches(
-                dataclasses.replace(tc, arch_type=arch_type), 1, 16,
-                device="cpu")
+    with pytest.raises(NotImplementedError, match="encdec"):
+        transformer.init_caches(dataclasses.replace(tc, arch_type="encdec"),
+                                1, 16, device="cpu")

@@ -136,9 +136,9 @@ def test_cim_matmul_bucket_edge_m_bit_exact(m, requant):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-# (K, N) of every deployed linear of the decoder family at published
+# (K, N) of every deployed linear of the model families at published
 # widths: q, k/v, o, the MLP (gate/up, down) or the expert banks and the
-# shared experts, and the head.
+# shared experts, an SSM block's in_proj and out_proj, and the head.
 FAMILY_KN = {
     "deepseek-7b": ((4096, 4096), (4096, 11008), (11008, 4096),
                     (4096, 102400)),
@@ -150,18 +150,33 @@ FAMILY_KN = {
                              (1024, 49408)),
     "moonshot-v1-16b-a3b": ((2048, 2048), (2048, 1408), (1408, 2048),
                             (2048, 2816), (2816, 2048), (2048, 163840)),
+    # in_proj 2 x 4096 + 2 x 128 + 64 heads, out_proj; head 50432 (the
+    # vocab 50280 padded to a multiple of 256).
+    "mamba2-1.3b": ((2048, 8512), (4096, 2048), (2048, 50432)),
+    # in_proj 2 x 5120 + 2 x 64 + 80 heads (N % 64 = 16), out_proj; the
+    # shared attention block's q/k/v/o and MLP; head 32000.
+    "zamba2-2.7b": ((2560, 10448), (5120, 2560), (2560, 2560),
+                    (2560, 10240), (10240, 2560), (2560, 32000)),
 }
 # M of the family's calls: decode rows, prompt lengths, and an expert
 # bank's G*C rows (a dropless 64-token prompt; capacity 60 for moonshot
-# and 160 for granite at a 512-token prompt).
-FAMILY_M = (1, 4, 8, 60, 64, 160, 200, 512, 2560, 4608)
+# and 160 for granite at a 512-token prompt); the state-space runs'
+# prompts of 192, 1024 and 4096 tokens and their batch of 4 x 512.
+FAMILY_M = (1, 4, 8, 60, 64, 160, 192, 200, 512, 1024, 2048, 2560, 4096,
+            4608)
 
 
 def _family_kn(cfg):
     """(K, N) of cfg's deployed linears, from its dimensions."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
-    kn = {(d, cfg.n_heads * hd), (d, cfg.n_kv_heads * hd),
-          (cfg.n_heads * hd, d), (d, cfg.padded_vocab)}
+    kn = {(d, cfg.padded_vocab)}
+    if cfg.ssm is not None:
+        di, n = cfg.ssm.d_inner(d), cfg.ssm.d_state
+        kn |= {(d, 2 * di + 2 * n + cfg.ssm.n_heads(d)), (di, d)}
+        if cfg.arch_type == "ssm":
+            return kn
+    kn |= {(d, cfg.n_heads * hd), (d, cfg.n_kv_heads * hd),
+           (cfg.n_heads * hd, d)}
     ff = cfg.moe.d_ff_expert if cfg.moe else cfg.d_ff
     kn |= {(d, ff), (ff, d)}
     if cfg.moe and cfg.moe.n_shared_experts:
@@ -173,9 +188,9 @@ def _family_kn(cfg):
 @pytest.mark.parametrize("arch", sorted(FAMILY_KN))
 @pytest.mark.parametrize("sms", [H100_SMS, 114])
 def test_family_shapes_get_a_valid_config(arch, sms):
-    """Every deployed linear of the five new models (from their
-    configs) takes the wgmma path at every M of their calls, with a tile
-    and split the C entry points launch."""
+    """Every deployed linear of the family models (from their configs)
+    takes the wgmma path at every M of their calls, with a tile and split
+    the C entry points launch."""
     from repro_torch import configs
     kn = _family_kn(configs.get_config(arch))
     assert kn == set(FAMILY_KN[arch])
@@ -186,20 +201,33 @@ def test_family_shapes_get_a_valid_config(arch, sms):
             _check_valid(cfg, m, k, n, sms)
 
 
-@pytest.mark.parametrize("k,n", [(2048, 1408), (1408, 2048), (1024, 512),
-                                 (512, 1024)])
+@pytest.mark.parametrize("k,n,act", [
+    # The expert banks (moonshot, granite) take int8 codes.
+    *(pytest.param(k, n, np.int8, id=f"{k}-{n}") for k, n in (
+        (2048, 1408), (1408, 2048), (1024, 512), (512, 1024))),
+    # The SSM projections (zamba2's in_proj, mamba2's in_proj and
+    # out_proj) take f32 activations.
+    *(pytest.param(k, n, np.float32, id=f"{k}-{n}-f32") for k, n in (
+        (2560, 10448), (2048, 8512), (4096, 2048)))])
 @pytest.mark.parametrize("m", [1, 60])
-def test_bank_shapes_bit_exact(k, n, m):
-    """K1's CPU path equals the JAX reference at the expert-bank (K, N)
-    (moonshot and granite) with int8 activations, as the bank products
-    pass them."""
+def test_bank_shapes_bit_exact(k, n, act, m):
+    """K1's CPU path equals the JAX reference at the expert-bank and SSM
+    projection (K, N), with the activations the serving path passes: the
+    banks' int8 codes, or f32 that the wrapper quantises
+    (``clip(rint(a / a_scale))``) where the reference takes the codes."""
     rng = np.random.default_rng(k + n + m)
-    a = rng.integers(-128, 128, (m, k)).astype(np.int8)
+    if act == np.int8:
+        a = rng.integers(-128, 128, (m, k)).astype(np.int8)
+        a_q = jnp.asarray(a)
+    else:
+        a = rng.standard_normal((m, k)).astype(np.float32) * 2.0
+        a_q = jnp.clip(jnp.round(jnp.asarray(a) / jnp.float32(0.05)), -128,
+                       127).astype(jnp.int8)
     w = rng.integers(-127, 128, (k, n)).astype(np.int8)
     ws = (rng.random(n) * 1e-2).astype(np.float32)
     zero = np.zeros(n, np.float32)
     want = jref.cim_matmul_ref(
-        jnp.asarray(a), jnp.asarray(w), jnp.float32(0.05), jnp.asarray(ws),
+        a_q, jnp.asarray(w), jnp.float32(0.05), jnp.asarray(ws),
         jnp.asarray(zero), jnp.float32(1.0))
     got = cim_ops.cim_matmul(
         convert.tensor_from_numpy(a), convert.tensor_from_numpy(w), 0.05,

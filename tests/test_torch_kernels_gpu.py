@@ -594,3 +594,73 @@ def test_moe_generate_matches_plain(hopper, arch, monkeypatch):
     want = serve()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [8, 512])
+@pytest.mark.parametrize("k,n", [(2560, 10448), (2048, 8512), (5120, 2560)])
+def test_cim_matmul_ssm_shapes_bit_exact(hopper, k, n, m):
+    """K1 at the SSM projections' (K, N) (mamba2's and zamba2's in_proj,
+    zamba2's out_proj), f32 and int8 activations: zamba2's in_proj has
+    N % 64 = 16, so its last 128-column tile holds 80 live columns."""
+    gen = torch.Generator(device="cuda").manual_seed(k + n + m)
+    w = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                      dtype=torch.int32).to(torch.int8)
+    ws = torch.rand(n, generator=gen, device="cuda") * 1e-3 + 1e-4
+    bias = torch.zeros(n, device="cuda")
+    one = torch.tensor(1.0, device="cuda")
+    a32 = torch.randn(m, k, generator=gen, device="cuda") * 2.0
+    a8 = torch.randint(-128, 128, (m, k), generator=gen, device="cuda",
+                       dtype=torch.int32).to(torch.int8)
+    for a in (a32, a8):
+        args = (a, w, torch.tensor(0.05, device="cuda"), ws, bias, one)
+        assert torch.equal(cim_ops.cim_matmul_kernel(*args),
+                           cim_ops.cim_matmul_plain(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,layers", [("mamba2-1.3b", 2),
+                                         ("zamba2-2.7b", 4)])
+def test_ssm_generate_matches_plain(hopper, arch, layers, monkeypatch):
+    """A reduced state-space model (d_model 256; zamba2 in two groups of
+    2 sharing one attention block, int8 KV caches) frozen under
+    w8a8_kernel and served greedily by Engine.generate: identical tokens
+    through the kernels and through their plain versions, and K1
+    launched once per deployed linear of every pass: each SSM block's
+    in_proj and out_proj, the shared block's 7 per group, the head."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.core import backend
+    from repro_torch.models import model as M
+    from repro_torch.serve import Engine
+    cfg = dataclasses.replace(
+        configs.reduced_config(arch, n_layers=layers, d_model=256),
+        head_dim=64, kv_cache_dtype="int8")
+    plan = backend.load_plan("w8a8_kernel")
+    params = M.freeze_params(
+        M.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+               device="cuda"), a_scale=0.05, plan=plan)
+    rng = np.random.default_rng(2)
+    batches = [rng.integers(0, cfg.vocab, (1, 64)),
+               rng.integers(0, cfg.vocab, (3, 16)),
+               rng.integers(0, cfg.vocab, (1, 5))]
+    new = 8
+
+    def serve():
+        eng = Engine(params, cfg, max_len=96, plan=plan, device="cuda")
+        return [eng.generate({"tokens": b}, max_new_tokens=new).tokens.cpu()
+                for b in batches]
+
+    cim_ops.launches = 0
+    got = serve()
+    groups = layers // cfg.hybrid_attn_interval if cfg.arch_type == \
+        "hybrid" else 0
+    assert cim_ops.launches == len(batches) * (new + 1) * (
+        2 * layers + 7 * groups + 1)
+    _plain_versions(monkeypatch)
+    want = serve()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
