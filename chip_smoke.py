@@ -29,7 +29,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
                shapes (the ``kernel_family`` line): K1 bit-exact and timed
                at every deployed (K, N) of deepseek-7b, stablelm-12b,
                h2o-danube-3-4b, granite-moe-1b-a400m, moonshot-v1-16b-a3b,
-               mamba2-1.3b and zamba2-2.7b at M = 8 and 512; K2 and K3 at
+               mamba2-1.3b, zamba2-2.7b, whisper-large-v3 and
+               qwen2-vl-72b at M = 8 and 512 (and whisper's encoder M =
+               1500 at its (1280, 1280) and (1280, 5120)); K2 and K3 at
                deepseek-7b's G = 1 and stablelm-12b's D = 160.
 4. main     -- serves 8 requests through the port's ContinuousEngine at
                qwen3-8b's widths (w8a8_kernel plan, paged attention,
@@ -40,8 +42,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
                split into decode and prefill calls, its own line), and
                replays the requests through the plain versions.
 5. static   -- the static engine (Engine.generate over dense KV caches)
-               on the same model cut to 18 of its 36 layers (its runs are
-               host-bound) and the same prompts, one call per prompt:
+               on the same model (all 36 layers) and the same prompts,
+               one call per prompt:
                greedy with the kernels (K1 must launch on every linear),
                greedy with the plain versions (prefill logits gated as in
                main), twice sampled with one key (identical streams); the
@@ -80,13 +82,26 @@ Phases (each prints one JSON line; any failure exits non-zero):
                and a shared attention block over 9 int8 KV caches), each
                with prompts of 64, 192, 512 and 1024 tokens, a batch of
                four 512-token prompts and one 4096-token prompt (16 SSD
-               chunks), and one profiler pass over mamba2's decode steps.
+               chunks), and one profiler pass over mamba2's decode steps;
+               the multimodal families through Engine.generate:
+               whisper-large-v3 (all 32 encoder + 32 decoder layers) over
+               1500 seeded bf16 frames (30 s of audio) under 4- and
+               64-token decoder prompts at batch 1 and 4, 32 new, an int8
+               self-attention cache beside bf16 cross K/V; qwen2-vl-72b
+               (all 80 layers, or the depth the card's free memory holds,
+               stated on its line) from seeded bf16 embeddings with
+               Qwen2-VL's [3, B, S] positions: 64 text tokens, 16 + a
+               16 x 16 image grid + 16, 64 + a 48 x 48 grid + 192 (2560,
+               attend_chunked), 16 new.
                Each run: every request OK, K1 launched exactly (stack
                passes) x (its per-pass count: layers x per-layer count,
-               the shared block's 7 a group, the head), K2/K3 on the
-               continuous runs, prefill logits within 1.5x the
-               reordering floor (bit-identical to the plain versions' on
-               the state-space runs); tokens per wall second,
+               the shared block's 7 a group, the head) + whisper's
+               encoder passes x 192 and cross K/V projections x 64,
+               K2/K3 on the continuous runs, prefill logits within 1.5x
+               the reordering floor (bit-identical to the plain versions'
+               on the state-space and multimodal runs); the multimodal
+               runs' first-token logits move with whisper's frames and
+               with qwen2-vl's image positions; tokens per wall second,
                decode-step ms, peak memory.
 9. vgg8     -- the paper's VGG-8 deployment path (repro_torch.launch.fig10)
                at its published widths with random weights from a seed:
@@ -100,7 +115,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
 
 ``--skip-main`` stops after the kernel phase (a quick kernel check);
 ``--only families`` (comma-separated phase names) runs only the named
-serving phases after it.
+serving phases after it, and ``--runs encdec,mrope`` only the named runs
+of the families phase.
 ``--k5-only --src DIR`` only times the whole CAAT macro op at every VGG-8
 shape, with the ``repro_torch`` package of another tree (a parent commit
 unpacked beside this one).  Long output goes to
@@ -112,6 +128,8 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
+import os
 import pathlib
 import re
 import subprocess
@@ -1852,6 +1870,8 @@ FAMILY_RUNS = (
     ("dense-d160", "stablelm-12b", 4, "continuous"),
     ("ssm", "mamba2-1.3b", None, "generate"),
     ("hybrid", "zamba2-2.7b", None, "generate"),
+    ("encdec", "whisper-large-v3", None, "generate"),
+    ("mrope", "qwen2-vl-72b", None, "generate"),
 )
 FAMILY_MOE_PROMPTS = (64, 192, 320, 512)   # whole 64-token chunks
 FAMILY_SWA_PROMPT = 4608                   # past the 4096 window, 9 x 512
@@ -1862,8 +1882,33 @@ FAMILY_LONG_PROMPT = 2560                  # past chunked_threshold 2048
 FAMILY_SSM_PROMPTS = (64, 192, 512, 1024)
 FAMILY_SSM_BATCH = (4, 512)
 FAMILY_SSM_LONG = 4096
-FAMILY_NEW = {"generate": 16, "swa": 32, "continuous": 16, "ssm": 32}
+# The encoder-decoder run: 30 s of audio (the encoder's 50 frames/s, the
+# model's only input length) under decoder prompts of 4 tokens (the
+# start-of-transcript sequence) and 64, at batch 1 and 4.
+FAMILY_ENCDEC_FRAMES = 1500
+FAMILY_ENCDEC_PROMPTS = (4, 64)
+FAMILY_ENCDEC_BATCHES = (1, 4)
+# The M-RoPE run's prompts, embeddings in place of the vision tower's
+# merged output: (text tokens, image grid rows, columns, text after).  64
+# text tokens (positions left to their default); 16 + a 16 x 16 grid + 16
+# (288); 64 + a 48 x 48 grid + 192 (2560: past chunked_threshold, a 512
+# multiple, so attend_chunked).
+FAMILY_MROPE_PROMPTS = ((64, 0, 0, 0), (16, 16, 16, 16), (64, 48, 48, 192))
+FAMILY_NEW = {"generate": 16, "swa": 32, "continuous": 16, "ssm": 32,
+              "encdec": 32, "mrope": 16}
 RECURRENT = ("ssm", "hybrid")
+# Runs whose kernel and plain prefill logits must be bit-identical (K1 is
+# exact and the rest is shared code; the other runs' K2/K3 or reordered
+# attention are held to the reordering floor).
+BIT_IDENTICAL = ("ssm", "hybrid", "encdec", "mrope")
+# Runs that make their embedding and head before the stack: after
+# qwen2-vl-72b's 70 GB of int8 blocks there is no room for the f32 draws
+# of its 152064 x 8192 embedding (two of 5 GB alive at once).
+HEAD_FIRST = ("mrope",)
+# Room kept free beside the weights when a run checks that its depth fits
+# (a block's masters and freeze temporaries, the prefill's activations,
+# the caches, the plain versions' float64 weight blocks).
+FIT_HEADROOM_BYTES = 5e9
 
 
 def family_plan():
@@ -1884,53 +1929,112 @@ def family_config(arch: str, layers):
                                kv_cache_dtype="int8")
 
 
-def family_params(torch, cfg, plan, device):
+def family_params(torch, cfg, plan, device, *, head_first=False):
     """Random weights from seed 0, frozen under ``plan`` one block at a
     time, so no more than one block's bf16 masters is ever held beside
     the int8 model (moonshot-v1-16b-a3b is ~28 B parameters at 48
     layers); a hybrid's shared attention block is made after its SSM
-    blocks.  Returns (params, init seconds)."""
+    blocks, an encoder-decoder's encoder before its decoder.  The
+    embedding and head come after the stack, or with ``head_first``
+    before it.  Returns (params, init seconds)."""
     from repro_torch.models import layers as L
     from repro_torch.models import model as M
     from repro_torch.models import transformer as T
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(0)
     dt = torch.bfloat16
+
+    def frozen(tree):
+        return M.freeze_params(tree, a_scale=0.05, plan=plan)
+
+    def outer():
+        p = {"embed": L.init_embedding(gen, cfg.padded_vocab, cfg.d_model,
+                                       dt, device=device),
+             "final_norm": L.init_rmsnorm(cfg.d_model, device=device),
+             "lm_head": frozen({"lm_head": L.init_lm_head(
+                 gen, cfg.d_model, cfg.padded_vocab, dt,
+                 device=device)})["lm_head"]}
+        if cfg.arch_type == "encdec":
+            p["enc_final_norm"] = L.init_rmsnorm(cfg.d_model, device=device)
+        return p
+
+    params = outer() if head_first else {}
     init = {"moe": T.init_moe_block, "ssm": T.init_ssm_block,
             "hybrid": T.init_ssm_block}.get(cfg.arch_type,
                                             T.init_dense_block)
+    lists = (("encoder", T.init_dense_block, cfg.n_enc_layers),
+             ("decoder", T.init_decoder_block, cfg.n_layers)) \
+        if cfg.arch_type == "encdec" else (("blocks", init, cfg.n_layers),)
     stack = {}
-    for _ in range(cfg.n_layers):
-        blk = {"stack": {"blocks": [init(gen, cfg, dt, device=device)]}}
-        stack.setdefault("blocks", []).extend(M.freeze_params(
-            blk, a_scale=0.05, plan=plan)["stack"]["blocks"])
-        del blk
+    for name, make, n in lists:
+        for _ in range(n):
+            blk = {"stack": {name: [make(gen, cfg, dt, device=device)]}}
+            stack.setdefault(name, []).extend(frozen(blk)["stack"][name])
+            del blk
     if cfg.arch_type == "hybrid":
-        stack["shared_attn"] = M.freeze_params(
+        stack["shared_attn"] = frozen(
             {"stack": {"shared_attn": T.init_dense_block(
-                gen, cfg, dt, device=device)}},
-            a_scale=0.05, plan=plan)["stack"]["shared_attn"]
-    params = M.freeze_params({
-        "embed": L.init_embedding(gen, cfg.padded_vocab, cfg.d_model, dt,
-                                  device=device),
-        "final_norm": L.init_rmsnorm(cfg.d_model, device=device),
-        "lm_head": L.init_lm_head(gen, cfg.d_model, cfg.padded_vocab, dt,
-                                  device=device)}, a_scale=0.05, plan=plan)
+                gen, cfg, dt, device=device)}})["stack"]["shared_attn"]
+    if not head_first:
+        params = outer()
     params["stack"] = stack
     if device == "cuda":
         torch.cuda.synchronize()
     return params, time.perf_counter() - t0
 
 
+def block_bytes(cfg) -> int:
+    """Bytes of one frozen dense or decoder block's int8 weights (q, k, v,
+    o, the MLP; a decoder block adds its cross-attention)."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    attn = 2 * d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
+    mlp = (3 if cfg.act == "silu" else 2) * d * cfg.d_ff
+    return attn * (2 if cfg.arch_type == "encdec" else 1) + mlp
+
+
+def fit_depth(torch, cfg, device) -> tuple:
+    """The largest depth of a dense or encoder-decoder ``cfg`` whose int8
+    blocks, bf16 embedding, int8 head and FIT_HEADROOM_BYTES fit in the
+    card's free memory, read now.  Returns (cfg, the memory reading:
+    free bytes and what all of ``cfg.n_layers`` would need)."""
+    if device != "cuda" or cfg.arch_type not in ("dense", "encdec"):
+        return cfg, None
+    free, _ = torch.cuda.mem_get_info()
+    outer = cfg.padded_vocab * cfg.d_model * 3
+    enc = cfg.n_enc_layers * block_bytes(dataclasses.replace(
+        cfg, arch_type="dense"))
+    need = cfg.n_layers * block_bytes(cfg) + enc + outer + FIT_HEADROOM_BYTES
+    reading = {"free_gb": free / 1e9, "need_gb": need / 1e9}
+    if need <= free:
+        return cfg, reading
+    layers = int((free - outer - enc - FIT_HEADROOM_BYTES) // block_bytes(cfg))
+    if layers < 1:
+        raise MemoryError(f"{cfg.name}: not one block fits ({reading})")
+    return dataclasses.replace(cfg, n_layers=layers), reading
+
+
 def k1_per_layer(cfg) -> int:
     """K1 launches of one block's pass: q, k, v, o, then the MLP's three,
     or three per expert (one per bank) and the shared experts' three; an
-    SSM block's in_proj and out_proj."""
+    SSM block's in_proj and out_proj; a decoder block's q, k, v, o, its
+    cross-attention's q and o (the cross K/V are projected once a
+    prefill) and the gelu MLP's in and out."""
     if cfg.arch_type in RECURRENT:
         return 2
+    if cfg.arch_type == "encdec":
+        return 8
     if cfg.arch_type != "moe":
         return 7
     return 4 + 3 * cfg.moe.n_experts + 3 * bool(cfg.moe.n_shared_experts)
+
+
+def k1_encoder(cfg) -> tuple:
+    """K1 launches of an encoder pass (q, k, v, o, in, out a layer) and of
+    one ``precompute_cross_kv`` (k and v a decoder layer); (0, 0) without
+    an encoder."""
+    if cfg.arch_type != "encdec":
+        return 0, 0
+    return 6 * cfg.n_enc_layers, 2 * cfg.n_layers
 
 
 def k1_per_pass(cfg) -> int:
@@ -1967,17 +2071,25 @@ def linear_shapes(cfg) -> list:
 def counted_passes(T, M):
     """Count the stack passes (``transformer.decode_stack``: a prefill, a
     prefill chunk or a decode step; ``model._prefill_stack``: an ssm or
-    hybrid prefill; each ends in one head call)."""
-    n = [0]
+    hybrid prefill; each ends in one head call) and an encoder-decoder
+    prefill's encoder passes (``transformer.apply_encoder``) and cross K/V
+    projections (``transformer.precompute_cross_kv``).  Yields ``{"stack":
+    n, "encoder": n, "cross_kv": n}``."""
+    n = dict.fromkeys(("stack", "encoder", "cross_kv"), 0)
 
-    def counting(fn):
+    def counting(fn, what):
         def wrapped(*a, **k):
-            n[0] += 1
+            n[what] += 1
             return fn(*a, **k)
         return wrapped
 
-    with swapped(T, "decode_stack", counting(T.decode_stack)), \
-            swapped(M, "_prefill_stack", counting(M._prefill_stack)):
+    with swapped(T, "decode_stack", counting(T.decode_stack, "stack")), \
+            swapped(M, "_prefill_stack", counting(M._prefill_stack,
+                                                  "stack")), \
+            swapped(T, "apply_encoder", counting(T.apply_encoder,
+                                                 "encoder")), \
+            swapped(T, "precompute_cross_kv", counting(
+                T.precompute_cross_kv, "cross_kv")):
         yield n
 
 
@@ -2009,13 +2121,17 @@ def reordered_attention(attn_lib):
 # (KVH, G, D) of the family's paged attention: deepseek-7b's MHA and
 # stablelm-12b's 160-wide heads.
 FAMILY_ATTENTION = (("deepseek-7b", 32, 1, 128), ("stablelm-12b", 8, 4, 160))
+# (K, N) that K1 also meets at whisper's encoder M: 1500 frames (and 6000
+# at batch 4), not a multiple of any row tile.
+FAMILY_K1_EXTRA_M = {(1280, 1280): (1500,), (1280, 5120): (1500,)}
 
 
 def family_k1(torch, timer, ops, gen) -> list:
     """K1 at every deployed (K, N) of the family models (FAMILY_RUNS,
     published widths): bit-exact to its plain version at decode M = 8 and
-    prefill M = 512, f32 and int8 input, then timed (f32 input) beside its
-    plain version, the ``torch._int_mm`` yardstick and its bound."""
+    prefill M = 512 (and whisper's encoder M, FAMILY_K1_EXTRA_M), f32 and
+    int8 input, then timed (f32 input) beside its plain version, the
+    ``torch._int_mm`` yardstick and its bound."""
     dev = "cuda"
     shapes = {}
     for _, arch, _, _ in FAMILY_RUNS:
@@ -2028,7 +2144,7 @@ def family_k1(torch, timer, ops, gen) -> list:
         w = rand_i8(torch, (k, n), gen, -127)
         w_scale = torch.rand(n, generator=gen, device=dev) * 1e-3 + 1e-4
         bias = torch.zeros(n, device=dev)
-        for m in (8, 512):
+        for m in (8, 512, *FAMILY_K1_EXTRA_M.get((k, n), ())):
             a32 = torch.randn(m, k, generator=gen, device=dev) * 2.0
             for a in (a32, rand_i8(torch, (m, k), gen)):
                 args = (a, w, a_scale, w_scale, bias, one)
@@ -2137,26 +2253,84 @@ def family_prompts(torch, cfg, lens, seed=3):
     return [torch.randint(0, cfg.vocab, (n,), generator=rng) for n in lens]
 
 
+def mrope_positions(torch, n_text, rows, cols, n_after):
+    """Qwen2-VL's [3, 1, S] t/h/w positions of ``n_text`` text tokens, a
+    ``rows`` x ``cols`` merged image grid and ``n_after`` text tokens:
+    text runs t = h = w = i; the grid takes t = offset, h = offset + row,
+    w = offset + col; the text after it resumes at offset + max(rows,
+    cols)."""
+    text = torch.arange(n_text).expand(3, n_text)
+    grid = torch.stack([torch.full((rows * cols,), n_text),
+                        n_text + torch.arange(rows).repeat_interleave(cols),
+                        n_text + torch.arange(cols).repeat(rows)])
+    after = (n_text + max(rows, cols)
+             + torch.arange(n_after)).expand(3, n_after)
+    return torch.cat([text, grid, after], dim=1)[:, None]
+
+
+def family_inputs(torch, cfg, shape, seed):
+    """Seeded bf16 inputs of width d_model at the embedding's scale: the
+    encoder's frames or the vision tower's merged embeddings."""
+    rng = torch.Generator().manual_seed(seed)
+    return (torch.randn(*shape, cfg.d_model, generator=rng)
+            * cfg.d_model ** -0.5).to(torch.bfloat16)
+
+
 def family_batches(torch, cfg):
-    """The Engine.generate runs' prompt batches ([B, S] token tensors, one
-    call each) and new tokens per call: the state-space runs' prompts,
-    batch and long prompt; one 4608-token prompt for a sliding window;
-    otherwise four prompts of 64-512."""
+    """The Engine.generate runs' batches (one call each: ``{"tokens": [B,
+    S]}``, plus ``frames`` for an encoder-decoder, or ``embeds`` with
+    optional ``positions`` in their place for M-RoPE) and new tokens per
+    call: the state-space runs' prompts, batch and long prompt; one
+    4608-token prompt for a sliding window; whisper's 4 and 64 decoder
+    tokens over 1500 frames at batch 1 and 4; qwen2-vl's
+    FAMILY_MROPE_PROMPTS; otherwise four prompts of 64-512."""
+    if cfg.arch_type == "encdec":
+        b = max(FAMILY_ENCDEC_BATCHES)
+        frames = family_inputs(torch, cfg, (b, FAMILY_ENCDEC_FRAMES), 6)
+        toks = torch.stack(family_prompts(
+            torch, cfg, (max(FAMILY_ENCDEC_PROMPTS),) * b))
+        return ([{"frames": frames[:n], "tokens": toks[:n, :s]}
+                 for n in FAMILY_ENCDEC_BATCHES
+                 for s in FAMILY_ENCDEC_PROMPTS], FAMILY_NEW["encdec"])
+    if cfg.mrope_sections is not None:
+        batches = []
+        for i, (n_text, rows, cols, n_after) in enumerate(
+                FAMILY_MROPE_PROMPTS):
+            s = n_text + rows * cols + n_after
+            batch = {"embeds": family_inputs(torch, cfg, (1, s), 7 + i)}
+            if rows:
+                batch["positions"] = mrope_positions(torch, n_text, rows,
+                                                     cols, n_after)
+            batches.append(batch)
+        return batches, FAMILY_NEW["mrope"]
     if cfg.arch_type in RECURRENT:
         n, s = FAMILY_SSM_BATCH
-        return ([p[None] for p in family_prompts(torch, cfg,
-                                                 FAMILY_SSM_PROMPTS)]
-                + [torch.stack(family_prompts(torch, cfg, (s,) * n,
-                                              seed=4))]
-                + [family_prompts(torch, cfg, (FAMILY_SSM_LONG,),
-                                  seed=5)[0][None]],
-                FAMILY_NEW["ssm"])
-    if cfg.sliding_window:
-        return ([p[None] for p in family_prompts(
-            torch, cfg, (FAMILY_SWA_PROMPT,))], FAMILY_NEW["swa"])
-    return ([p[None] for p in family_prompts(torch, cfg,
-                                             FAMILY_MOE_PROMPTS)],
-            FAMILY_NEW["generate"])
+        prompts = ([p[None] for p in family_prompts(torch, cfg,
+                                                    FAMILY_SSM_PROMPTS)]
+                   + [torch.stack(family_prompts(torch, cfg, (s,) * n,
+                                                 seed=4))]
+                   + [family_prompts(torch, cfg, (FAMILY_SSM_LONG,),
+                                     seed=5)[0][None]])
+        new = FAMILY_NEW["ssm"]
+    elif cfg.sliding_window:
+        prompts = [p[None] for p in family_prompts(
+            torch, cfg, (FAMILY_SWA_PROMPT,))]
+        new = FAMILY_NEW["swa"]
+    else:
+        prompts = [p[None] for p in family_prompts(torch, cfg,
+                                                   FAMILY_MOE_PROMPTS)]
+        new = FAMILY_NEW["generate"]
+    return [{"tokens": p} for p in prompts], new
+
+
+def prompt_shape(batch) -> tuple:
+    """(B, S) of a batch's prompt: its decoder tokens or its embeds."""
+    return tuple((batch["tokens"] if "tokens" in batch
+                  else batch["embeds"]).shape[:2])
+
+
+def on_device(batch, device) -> dict:
+    return {k: v.to(device) for k, v in batch.items()}
 
 
 def decode_profile(torch, steps) -> dict:
@@ -2189,9 +2363,13 @@ def family_run(torch, name, cfg, path, cim_ops, paged_ops, *,
     cache, the bf16 ring, or the recurrent states); "continuous" serves
     the main phase's 8 requests through a ContinuousEngine with chunked
     prefill of 64, paged attention and an int8 pool, then ``long_prompt``
-    (if any) through Engine.generate.  The state-space runs' prefill
-    logits must equal the plain versions' bit for bit (K1 is exact and
-    the rest is shared code).  Returns (result, launches, failures)."""
+    (if any) through Engine.generate.  The state-space and multimodal
+    runs' prefill logits must equal the plain versions' bit for bit (K1 is
+    exact and the rest is shared code); the multimodal runs also show
+    their inputs live (first-token logits move when whisper's frames, or
+    qwen2-vl's image positions, change).  A dense or encoder-decoder run
+    is cut to the depth that fits the card's free memory
+    (``fit_depth``).  Returns (result, launches, failures)."""
     from repro_torch.models import attention as attn_lib
     from repro_torch.models import model as M
     from repro_torch.models import transformer as T
@@ -2205,16 +2383,20 @@ def family_run(torch, name, cfg, path, cim_ops, paged_ops, *,
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     plan = family_plan()
-    params, init_s = family_params(torch, cfg, plan, device)
+    cfg, memory = fit_depth(torch, cfg, device)
+    params, init_s = family_params(torch, cfg, plan, device,
+                                   head_first=name in HEAD_FIRST)
     per_pass = k1_per_pass(cfg)
-    recurrent = cfg.arch_type in RECURRENT
+    enc_k1, cross_k1 = k1_encoder(cfg)
+    exact = name in BIT_IDENTICAL
     failures, runs = [], {}
     total = dict.fromkeys(read_launches(cim_ops, paged_ops), 0)
     pf_logits = {"kernel": [], "plain": [], "reorder": []}
     first_kernel, gated_prompts = [], []
 
     def served(tag, fn, n_prompts_tokens):
-        """Run ``fn`` with the counts at 0; check K1 = passes x per_pass."""
+        """Run ``fn`` with the counts at 0; check K1 = passes x per_pass
+        (+ the encoder passes' and cross K/V projections' launches)."""
         reset_launches(cim_ops, paged_ops)
         with counted_passes(T, M) as passes:
             sync()
@@ -2225,60 +2407,104 @@ def family_run(torch, name, cfg, path, cim_ops, paged_ops, *,
         launches = read_launches(cim_ops, paged_ops)
         for k, v in launches.items():
             total[k] += v
-        want = passes[0] * per_pass
+        extra = passes["encoder"] * enc_k1 + passes["cross_kv"] * cross_k1
+        want = passes["stack"] * per_pass + extra
         if device == "cuda" and launches["cim_matmul"] != want:
             failures.append(f"{name}/{tag}: K1 launched "
                             f"{launches['cim_matmul']} times, not {want} "
-                            f"({passes[0]} passes x {per_pass})")
+                            f"({passes['stack']} passes x {per_pass} + "
+                            f"{passes['encoder']} encoder passes x {enc_k1}"
+                            f" + {passes['cross_kv']} cross K/V x "
+                            f"{cross_k1})")
         runs[tag] = {"wall_s": wall, "tokens": n_tok,
                      "tokens_per_wall_s": n_tok / wall,
                      "prompt_tokens": n_prompts_tokens,
-                     "passes": passes[0], "k1_per_pass": per_pass,
+                     "passes": passes["stack"], "k1_per_pass": per_pass,
                      "k1_expected": want, "launches": launches,
                      "k1_per_layer_step": (
-                         (launches["cim_matmul"] - passes[0])
-                         / max(1, passes[0] * cfg.n_layers))}
-        return out, passes[0]
+                         (launches["cim_matmul"] - passes["stack"] - extra)
+                         / max(1, passes["stack"] * cfg.n_layers))}
+        if enc_k1:
+            runs[tag].update(encoder_passes=passes["encoder"],
+                             cross_kv_passes=passes["cross_kv"],
+                             k1_encoder_pass=enc_k1, k1_cross_kv=cross_k1)
+        return out, passes
 
     def generate(batches, new):
-        max_len = max(b.shape[1] for b in batches) + new + 32
+        max_len = max(prompt_shape(b)[1] for b in batches) + new + 32
         eng = Engine(params, cfg, max_len=max_len, plan=plan, device=device)
 
         def fn():
-            outs = [eng.generate({"tokens": b.to(device)},
+            outs = [eng.generate(on_device(b, device),
                                  max_new_tokens=new).tokens.cpu()
                     for b in batches]
             return outs, sum(o.numel() for o in outs)
 
-        outs, n_passes = served("generate", fn,
-                                sum(b.numel() for b in batches))
-        # A prefill and ``new`` decode steps per call.
-        if n_passes != len(batches) * (new + 1):
-            failures.append(f"{name}: {n_passes} stack passes, not "
-                            f"{len(batches) * (new + 1)}")
+        outs, passes = served("generate", fn, sum(
+            math.prod(prompt_shape(b)) for b in batches))
+        # A prefill and ``new`` decode steps per call; an encoder pass and
+        # one cross K/V projection per prefill.
+        calls = len(batches)
+        if passes["stack"] != calls * (new + 1):
+            failures.append(f"{name}: {passes['stack']} stack passes, not "
+                            f"{calls * (new + 1)}")
+        if enc_k1 and (passes["encoder"], passes["cross_kv"]) != (calls,
+                                                                  calls):
+            failures.append(f"{name}: {passes['encoder']} encoder passes "
+                            f"and {passes['cross_kv']} cross K/V, not "
+                            f"{calls} each")
         prefill = eng.prefill_fn(plan)
 
         def last_logits(batch):
             return prefill(params, batch)[0][:, -1, :cfg.vocab].float()
 
+        kernel_logits = []
         for b, o in zip(batches, outs):
-            batch = eng.bucket({"tokens": b.to(device)})
+            batch = eng.bucket(on_device(b, device))
             lk = last_logits(batch)
+            kernel_logits.append(lk)
             with plain_versions(cim_ops, paged_ops):
                 lp = last_logits(batch)
-                # The state-space runs are held to bit-identity: a floor
-                # of 0, so logit_gate fails any kernel-vs-plain difference.
-                if recurrent:
+                # The state-space and multimodal runs are held to
+                # bit-identity: a floor of 0, so logit_gate fails any
+                # kernel-vs-plain difference.
+                if exact:
                     lr = lp
                 else:
                     with reordered_attention(attn_lib):
                         lr = last_logits(batch)
-            for row in range(b.shape[0]):
+            rows, s = prompt_shape(b)
+            for row in range(rows):
                 pf_logits["kernel"].append(lk[row])
                 pf_logits["plain"].append(lp[row])
                 pf_logits["reorder"].append(lr[row])
                 first_kernel.append(o[row])
-                gated_prompts.append(b.shape[1])
+                gated_prompts.append(s)
+        # Liveness, one more prefill each: whisper's first-token logits
+        # move with its frames, qwen2-vl's when the image prompt's
+        # positions become text positions (the M-RoPE bands are live).
+        live = None
+        if enc_k1:
+            b = on_device(batches[0], device)
+            changed = dict(b, frames=family_inputs(
+                torch, cfg, b["frames"].shape[:2], 99).to(device))
+            live = ("frames", 0, last_logits(changed))
+        elif cfg.mrope_sections is not None:
+            i = next(i for i, b in enumerate(batches) if "positions" in b)
+            changed = {"embeds": batches[i]["embeds"].to(device)}
+            live = ("image positions -> text positions", i,
+                    last_logits(changed))
+        if live is not None:
+            what, i, moved = live
+            diff = (moved - kernel_logits[i]).abs().max().item()
+            result["liveness"] = {
+                "changed": what, "prompt_len": prompt_shape(batches[i])[1],
+                "first_token_logit_max_abs_diff": diff,
+                "first_token_changed": bool(
+                    (moved.argmax(-1) != kernel_logits[i].argmax(-1)).any())}
+            if not diff > 0:
+                failures.append(f"{name}: first-token logits do not move "
+                                f"when the {what} change")
         return eng
 
     result = {"phase": "families", "run": name, "arch": cfg.name,
@@ -2288,12 +2514,15 @@ def family_run(torch, name, cfg, path, cim_ops, paged_ops, *,
               "n_kv_heads": cfg.n_kv_heads,
               "head_dim": cfg.resolved_head_dim, "vocab": cfg.vocab,
               "sliding_window": cfg.sliding_window,
+              "encoder_layers": cfg.n_enc_layers or None,
+              "mrope_sections": cfg.mrope_sections,
               "moe": dataclasses.asdict(cfg.moe) if cfg.moe else None,
               "init_s": init_s}
     if path == "generate":
         batches, new = family_batches(torch, cfg)
         eng = generate(batches, new)
-        step_prompt = batches[-1][0]
+        step_batch = {k: v[:, :1] if k == "positions" else v[:1]
+                      for k, v in batches[-1].items()}
     else:
         reqs = [dataclasses.replace(r, max_new=FAMILY_NEW["continuous"])
                 for r in serving_requests(torch, cfg)]
@@ -2335,10 +2564,11 @@ def family_run(torch, name, cfg, path, cim_ops, paged_ops, *,
             first_kernel.append(torch.as_tensor(res[r.rid].tokens))
             gated_prompts.append(r.prompt_len)
         eng = None
-        step_prompt = torch.as_tensor(reqs[0].prompt)
+        step_batch = {"tokens": torch.as_tensor(reqs[0].prompt)[None]}
         if long_prompt:
             eng = generate(
-                [family_prompts(torch, cfg, (long_prompt,))[0][None]],
+                [{"tokens": family_prompts(torch, cfg,
+                                           (long_prompt,))[0][None]}],
                 FAMILY_NEW["generate"])
     gate, gate_failures = logit_gate(
         torch, pf_logits, first_kernel,
@@ -2347,11 +2577,12 @@ def family_run(torch, name, cfg, path, cim_ops, paged_ops, *,
 
     # One decode step at batch 1 after the longest prompt (Engine.generate's
     # step over a dense cache), host clock around 8 synchronized steps.
-    eng = eng or Engine(params, cfg, max_len=len(step_prompt) + 48,
-                        plan=plan, device=device)
+    step_len = prompt_shape(step_batch)[1]
+    eng = eng or Engine(params, cfg, max_len=step_len + 48, plan=plan,
+                        device=device)
     step = eng.make_step(plan, True)
     logits, caches = eng.prefill_fn(plan)(
-        params, eng.bucket({"tokens": step_prompt[None].to(device)}))
+        params, eng.bucket(on_device(step_batch, device)))
     tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
     key = prng.PRNGKey(0, device=device)
     rids = torch.zeros(1, dtype=torch.int32, device=device)
@@ -2376,9 +2607,10 @@ def family_run(torch, name, cfg, path, cim_ops, paged_ops, *,
     result.update({
         "runs": runs, "gated_prompt_lens": gated_prompts,
         "decode_step_ms_b1": step_ms,
-        "decode_step_prompt": len(step_prompt),
+        "decode_step_prompt": step_len,
         "depth_cut": (None if cfg.n_layers == published
                       else f"{cfg.n_layers} of {published} layers"),
+        "memory_check": memory,
         "k1_per_layer_step": k1_per_layer(cfg), "k1_per_pass": per_pass,
         "launches": total,
         **gate,
@@ -2586,6 +2818,9 @@ def main() -> int:
     ap.add_argument("--only", default=None,
                     help="comma-separated serving phases to run after the "
                          "kernel checks (e.g. families), the rest skipped")
+    ap.add_argument("--runs", default=None,
+                    help="comma-separated runs of the families phase "
+                         "(e.g. encdec,mrope), the rest skipped")
     ap.add_argument("--k5-only", action="store_true",
                     help="only time the whole CAAT macro op at every "
                          "VGG-8 shape")
@@ -2594,6 +2829,12 @@ def main() -> int:
                          "(with --k5-only: another tree's op)")
     args = ap.parse_args()
 
+    # Segments that grow in place: the families phase holds qwen2-vl-72b's
+    # ~74 GB of weights, frozen block by block beside f32 temporaries of
+    # other sizes, which fixed segments leave fragmented (~7.5 GiB reserved
+    # but unusable at 76 of its 80 blocks).
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2679,7 +2920,10 @@ def main() -> int:
                                                paged_ops, cache=served)),
             ("durable", lambda: durable_path(torch, qwen, cim_ops,
                                              paged_ops, cache=served)),
-            ("families", lambda: families_path(torch, cim_ops, paged_ops)),
+            ("families", lambda: families_path(
+                torch, cim_ops, paged_ops,
+                runs=[r for r in FAMILY_RUNS
+                      if args.runs is None or r[0] in args.runs.split(",")])),
             ("vgg8", lambda: vgg8_path(torch, cim_ops, bs_ops, caat_ops)))
         only = set(args.only.split(",")) if args.only else None
         for path, drive in paths:

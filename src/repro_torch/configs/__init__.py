@@ -1,10 +1,9 @@
 """Config registry for the PyTorch port: ``get_config`` and the reduced
-smoke variants.  The decoder-only dense and MoE families and the
-state-space families (mamba2's SSM stack, zamba2's hybrid) are
-registered (the JAX package's order); whisper and qwen2-vl arrive with
-their model slices.  The paper's
-VGG-8 deployment lives beside them, as in the JAX package:
-``repro_torch.configs.vgg8_cifar10.config()``."""
+smoke variants, every arch of the JAX package in its order: the
+decoder-only dense and MoE families, the encoder-decoder (whisper), M-RoPE
+(qwen2-vl) and the state-space families (mamba2's SSM stack, zamba2's
+hybrid).  The paper's VGG-8 deployment lives beside them, as in the JAX
+package: ``repro_torch.configs.vgg8_cifar10.config()``."""
 from __future__ import annotations
 
 import dataclasses
@@ -20,6 +19,8 @@ ARCH_IDS = (
     "qwen3-8b",
     "h2o-danube-3-4b",
     "deepseek-7b",
+    "whisper-large-v3",
+    "qwen2-vl-72b",
     "mamba2-1.3b",
     "zamba2-2.7b",
 )

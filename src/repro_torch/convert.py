@@ -42,15 +42,19 @@ def params_from_jax(tree, cfg, *, device="cpu") -> dict:
     per-layer dicts: a MoE layer's router, its expert banks (master
     ``gate``/``up``/``down`` ``[E, K, N]``, or frozen ``{..}_q`` with
     ``{..}_scale`` ``[E, N]``) and its ``a_scale`` (a scalar, from the
-    JAX stack's ``[L]``) come out of the same slicing.  Every other key of
-    ``stack`` (a hybrid's ``shared_attn`` block) crosses as it is."""
+    JAX stack's ``[L]``) come out of the same slicing.  An encdec stack's
+    ``encoder`` unstacks by ``n_enc_layers`` and its ``decoder`` by
+    ``n_layers``.  Every other key of ``stack`` (a hybrid's
+    ``shared_attn`` block) crosses as it is."""
+    depth = {"blocks": cfg.n_layers, "decoder": cfg.n_layers,
+             "encoder": cfg.n_enc_layers}
     out = {}
     for key, node in tree.items():
         if key == "stack":
             out[key] = {
                 name: ([_convert(_unstack(sub, i), device)
-                        for i in range(cfg.n_layers)]
-                       if name == "blocks" else _convert(sub, device))
+                        for i in range(depth[name])]
+                       if name in depth else _convert(sub, device))
                 for name, sub in node.items()}
         else:
             out[key] = _convert(node, device)

@@ -25,6 +25,8 @@ from repro_torch.kernels import autotune, build
 
 # Launches of the CUDA kernel (plain integer; reset it to 0 before a run).
 launches = 0
+# Weights per column block of the plain version's float64 product (1 GiB).
+PLAIN_BLOCK = 1 << 27
 
 
 def cim_matmul_plain(a, w_q, a_scale, w_scale, bias, out_scale, *,
@@ -35,11 +37,17 @@ def cim_matmul_plain(a, w_q, a_scale, w_scale, bias, out_scale, *,
 
     The int8 product is exact (float64 accumulation, see core/quant.py),
     then the same f32 epilogue as the kernel, so the two agree bit for
-    bit."""
+    bit.  The product runs over column blocks of at most ``PLAIN_BLOCK``
+    weights, so the float64 copy of a large weight (a 152064-wide head)
+    stays bounded; every column is exact either way."""
     if a.dtype != torch.int8:
         a = torch.clamp(torch.round(a / a_scale), -128, 127).to(torch.int8)
-    acc = torch.matmul(a.to(torch.float64), w_q.to(torch.float64))
-    y = acc.to(torch.int32).to(torch.float32) * (a_scale * w_scale)
+    a64 = a.to(torch.float64)
+    cols = max(1, PLAIN_BLOCK // max(1, w_q.shape[0]))
+    acc = torch.cat([torch.matmul(a64, w_q[:, j:j + cols].to(torch.float64))
+                     .to(torch.int32) for j in range(0, w_q.shape[1], cols)],
+                    dim=1)
+    y = acc.to(torch.float32) * (a_scale * w_scale)
     y = y + bias
     if relu:
         y = torch.clamp_min(y, 0.0)

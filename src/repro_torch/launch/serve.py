@@ -16,13 +16,17 @@ Usage:
 
 ``--arch`` takes any of ``repro_torch.configs.ARCH_IDS`` (qwen3-8b,
 deepseek-7b, stablelm-12b, h2o-danube-3-4b, granite-moe-1b-a400m,
-moonshot-v1-16b-a3b, mamba2-1.3b, zamba2-2.7b).  MoE, sliding-window,
-ssm and hybrid archs are served by the static engine only:
-``--continuous`` refuses them with the JAX package's message.  Like the JAX launcher it serves the arch's reduced
-config with random weights (seeded).  Without ``--continuous`` it is the static engine:
-``--batch`` prompts of ``--prompt-len`` tokens drawn from
-``PRNGKey(1)`` (``serve/prng.py``, the JAX launcher's prompts), one
-prefill and greedy decode on one device.  ``--continuous`` serves a
+moonshot-v1-16b-a3b, whisper-large-v3, qwen2-vl-72b, mamba2-1.3b,
+zamba2-2.7b).  MoE, sliding-window, encoder-decoder, M-RoPE, ssm and
+hybrid archs are served by the static engine only: ``--continuous``
+refuses them with the JAX package's message.  The static engine feeds
+token prompts only, as the JAX launcher does: qwen2-vl-72b serves them
+text-only, and whisper-large-v3, whose encoder needs frame embeddings,
+raises a ``ValueError`` naming ``frames``.  Like the JAX launcher it
+serves the arch's reduced config with random weights (seeded).  Without
+``--continuous`` it is the static engine: ``--batch`` prompts of
+``--prompt-len`` tokens drawn from ``PRNGKey(1)`` (``serve/prng.py``, the
+JAX launcher's prompts), one prefill and greedy decode on one device.  ``--continuous`` serves a
 synthetic Poisson request stream with blocking prefill, or chunked
 prefill with ``--chunked-prefill``; ``--prefix-cache`` gives 80% of the
 requests a shared system prefix of half the prompt; ``--drain-deadline``

@@ -19,8 +19,14 @@ Regimes:
   ``attend_decode_int8``).  A sliding-window model keeps a ring cache of
   ``min(max_len, window)`` positions.
 
+Cross-attention (the encoder-decoder family) attends the encoder's K/V
+without a mask: ``attend_full`` / ``attend_chunked`` in the full-sequence
+forward, ``attend_decode`` (or non-causal ``attend_chunked`` past
+``chunked_threshold``) over K/V projected once at prefill.  M-RoPE rotates
+by [3, B, S] t/h/w positions in frequency bands (``layers.rope_angles``).
+
 Caches and the pool are updated in place (the JAX package returns new
-ones).  M-RoPE is not ported yet.
+ones).
 """
 from __future__ import annotations
 
@@ -316,8 +322,9 @@ def attend_prefill_paged(q, k, v, k_pages, v_pages, block_tables, pos,
     return out, k_pages, v_pages
 
 
-def _attend_dense_cache(q, k, v, kv_cache: dict, *, window=None,
-                        chunked_threshold: int = 2048) -> torch.Tensor:
+def _attend_dense_cache(q, k, v, kv_cache: dict, *, causal: bool = True,
+                        window=None, chunked_threshold: int = 2048
+                        ) -> torch.Tensor:
     """The dense (non-paged) KV cache: ``kv_cache`` holds ``k``/``v``
     ``[B, S_max, KVH, D]`` (int8 codes with bf16 ``k_scale``/``v_scale``
     ``[B, S_max, KVH]`` for an int8 cache) and ``len``, a 0-d int32 tensor
@@ -356,9 +363,9 @@ def _attend_dense_cache(q, k, v, kv_cache: dict, *, window=None,
             kv_cache[name].index_copy_(1, idx, x.to(kv_cache[name].dtype))
     if s > 1:
         if s <= chunked_threshold:
-            out = attend_full(q, k, v, causal=True, window=window)
+            out = attend_full(q, k, v, causal=causal, window=window)
         else:
-            out = attend_chunked(q, k, v, causal=True, window=window)
+            out = attend_chunked(q, k, v, causal=causal, window=window)
     else:
         slots = torch.arange(s_cache, device=dev)
         if ring:
@@ -393,63 +400,109 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(torch.float32) * scale.to(torch.float32)[..., None]
 
 
-def attention(p: dict, x: torch.Tensor, cfg, *, kv_cache: dict | None = None,
-              mode=None, chunked_threshold: int = 2048):
-    """Causal self-attention layer.  Returns (output [B, S, d_model], updated
-    cache or None).  ``kv_cache`` is None (full-sequence forward), a dense
-    cache {k, v, len[, k_scale, v_scale]} (``_attend_dense_cache``) or a
-    paged-pool view {k, v, block_tables, lens[, write_mask, chunk_len,
-    pf_has_past]}: S == 1 decodes one token per row, S > 1 prefills (a
-    whole prompt into a dense cache, a chunk into the pool)."""
+def attention(p: dict, x: torch.Tensor, cfg, *, positions=None,
+              causal: bool = True, kv_cache: dict | None = None,
+              xattn_kv: torch.Tensor | None = None,
+              xattn_cache: dict | None = None, mode=None,
+              chunked_threshold: int = 2048):
+    """Attention layer.  Returns (output [B, S, d_model], updated cache or
+    None).
+
+    Self-attention (the default) rotates q and k at ``positions``: [B, S],
+    or [3, B, S] t/h/w ids under M-RoPE (``cfg.mrope_sections``); None
+    means ``arange(S)`` past the cache's length, the same on every M-RoPE
+    axis.  ``causal=False`` is the encoder's bidirectional attention.
+    ``kv_cache`` is None (full-sequence forward), a dense cache {k, v,
+    len[, k_scale, v_scale]} (``_attend_dense_cache``) or a paged-pool
+    view {k, v, block_tables, lens[, write_mask, chunk_len, pf_has_past]}:
+    S == 1 decodes one token per row, S > 1 prefills (a whole prompt into
+    a dense cache, a chunk into the pool).
+
+    Cross-attention takes no rotary embedding and no mask: ``xattn_kv``
+    (the encoder output [B, S_enc, d_model]) projects k/v here, in the
+    full-sequence forward; ``xattn_cache`` ({k, v} [B, S_enc, KVH, D],
+    projected once by ``transformer.precompute_cross_kv``) serves prefill
+    and decode.  Under int8 residency q/k/v share one conversion of x in
+    self-attention only: cross-attention's q and k/v read different
+    sources."""
     mode = mode or cfg.linear_mode
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     dt = x.dtype
     window = cfg.sliding_window
-    if cfg.mrope_sections is not None:
-        raise NotImplementedError(
-            "M-RoPE attention is not ported yet (ROADMAP queue 1)")
+    cross = xattn_kv is not None or xattn_cache is not None
 
     x_in = x
-    if backend_lib.residency_enabled(mode):
+    if backend_lib.residency_enabled(mode) and not cross:
         x_in = backend_lib.shared_quant((p["q"], p["k"], p["v"]), x)
 
     q = layers.dense(p["q"], x_in, mode, dtype=dt,
                      path="attn/q").reshape(b, s, cfg.n_heads, hd)
-    k = layers.dense(p["k"], x_in, mode, dtype=dt,
-                     path="attn/k").reshape(b, s, cfg.n_kv_heads, hd)
-    v = layers.dense(p["v"], x_in, mode, dtype=dt,
-                     path="attn/v").reshape(b, s, cfg.n_kv_heads, hd)
-    if "q_norm" in p:
-        q = layers.rmsnorm(p["q_norm"], q, cfg.norm_eps)
-        k = layers.rmsnorm(p["k_norm"], k, cfg.norm_eps)
-
-    positions = torch.arange(s, device=x.device)[None, :]
-    if kv_cache is not None:
-        positions = positions + (kv_cache["lens"][:, None]
-                                 if "lens" in kv_cache else kv_cache["len"])
-    ang = layers.rope_angles(positions, hd, cfg.rope_theta)
-    q = layers.apply_rope(q, ang)
-    k = layers.apply_rope(k, ang)
 
     def out_proj(o):
         return layers.dense(p["o"], o.reshape(b, s, cfg.n_heads * hd), mode,
                             path="attn/o").to(dt)
 
-    if kv_cache is None:
-        if s <= chunked_threshold:
-            out = attend_full(q, k, v, causal=True, window=window)
+    if xattn_cache is not None:
+        kx, vx = xattn_cache["k"], xattn_cache["v"]
+        if max(s, kx.shape[1]) <= chunked_threshold:
+            out = attend_decode(q, kx, vx)
         else:
-            out = attend_chunked(q, k, v, causal=True, window=window)
+            out = attend_chunked(q, kx, vx, causal=False,
+                                 q_chunk=min(512, s))
         return out_proj(out), None
 
-    if "block_tables" not in kv_cache:
-        out = _attend_dense_cache(q, k, v, kv_cache, window=window,
+    kv_src = x_in if xattn_kv is None else xattn_kv
+    sk = kv_src.shape[1]
+    k = layers.dense(p["k"], kv_src, mode, dtype=dt,
+                     path="attn/k").reshape(b, sk, cfg.n_kv_heads, hd)
+    v = layers.dense(p["v"], kv_src, mode, dtype=dt,
+                     path="attn/v").reshape(b, sk, cfg.n_kv_heads, hd)
+    if "q_norm" in p:
+        q = layers.rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = layers.rmsnorm(p["k_norm"], k, cfg.norm_eps)
+
+    paged = kv_cache is not None and "block_tables" in kv_cache
+    if paged:
+        if xattn_kv is not None:
+            raise ValueError("paged KV caches serve self-attention only")
+        if window is not None:
+            raise ValueError("paged KV caches do not model sliding windows "
+                             "(no ring blocks)")
+        if cfg.mrope_sections is not None:
+            raise ValueError("paged KV caches are single-axis-RoPE only "
+                             "(per-row lens positions have no t/h/w M-RoPE "
+                             "layout)")
+
+    if xattn_kv is None:
+        if positions is None:
+            positions = torch.arange(s, device=x.device)[None, :]
+            if kv_cache is not None:
+                positions = positions + (kv_cache["lens"][:, None] if paged
+                                         else kv_cache["len"])
+            if cfg.mrope_sections is not None:
+                positions = positions[None].expand(3, 1, s)
+        ang = layers.rope_angles(positions, hd, cfg.rope_theta,
+                                 cfg.mrope_sections)
+        q = layers.apply_rope(q, ang)
+        k = layers.apply_rope(k, ang)
+
+    if kv_cache is None:
+        q_chunk = 512
+        if xattn_kv is not None:
+            causal, window, q_chunk = False, None, min(512, s)
+        if max(s, sk) <= chunked_threshold:
+            out = attend_full(q, k, v, causal=causal, window=window)
+        else:
+            out = attend_chunked(q, k, v, causal=causal, window=window,
+                                 q_chunk=q_chunk)
+        return out_proj(out), None
+
+    if not paged:
+        out = _attend_dense_cache(q, k, v, kv_cache, causal=causal,
+                                  window=window,
                                   chunked_threshold=chunked_threshold)
         return out_proj(out), kv_cache
-    if window is not None:
-        raise ValueError("paged KV caches do not model sliding windows (no "
-                         "ring blocks)")
     bt = kv_cache["block_tables"]
     lens = kv_cache["lens"]
     wm = kv_cache.get("write_mask")

@@ -1,5 +1,6 @@
-"""Shared model layers: the CiM-aware linear, RMSNorm, rotary embeddings,
-the gated MLP and the embedding (port of ``repro/models/layers.py``).
+"""Shared model layers: the CiM-aware linear, RMSNorm and LayerNorm,
+rotary embeddings (with M-RoPE), the gated and gelu MLPs and the
+embedding (port of ``repro/models/layers.py``).
 
 Parameters are plain nested dicts of tensors with the JAX package's keys,
 so a converted JAX tree drops in unchanged.  Every weight-stationary
@@ -65,6 +66,20 @@ def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (x * torch.rsqrt(var + eps) * p["scale"]).to(dt)
 
 
+def init_layernorm(dim: int, *, device="cpu") -> dict:
+    return {"scale": torch.ones(dim, dtype=torch.float32, device=device),
+            "bias": torch.zeros(dim, dtype=torch.float32, device=device)}
+
+
+def layernorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    return ((x - mu) * torch.rsqrt(var + eps) * p["scale"]
+            + p["bias"]).to(dt)
+
+
 def _rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
@@ -72,12 +87,27 @@ def _rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
                                         device=device), exps)
 
 
-def rope_angles(positions: torch.Tensor, head_dim: int,
-                theta: float) -> torch.Tensor:
-    """Angles [B, S, head_dim/2] for positions [B, S] (single-axis RoPE;
-    M-RoPE arrives with its model family)."""
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float,
+                sections=None) -> torch.Tensor:
+    """Angles [.., S, head_dim/2].  ``positions`` is [B, S] (single-axis
+    RoPE) or, with ``sections`` (M-RoPE), [3, B, S] t/h/w position ids:
+    section *i* takes the next ``sections[i]`` frequency bands from
+    position axis *i* (the sections sum to head_dim/2)."""
     freqs = _rope_freqs(head_dim, theta, positions.device)
-    return positions[..., None].to(torch.float32) * freqs
+    if sections is None:
+        return positions[..., None].to(torch.float32) * freqs
+    if positions.ndim != 3 or positions.shape[0] != len(sections):
+        raise ValueError(f"M-RoPE needs positions [{len(sections)}, B, S], "
+                         f"got {tuple(positions.shape)}")
+    parts = []
+    start = 0
+    for i, sec in enumerate(sections):
+        parts.append(positions[i][..., None].to(torch.float32)
+                     * freqs[start:start + sec])
+        start += sec
+    if start != freqs.shape[0]:
+        raise ValueError("M-RoPE sections must sum to head_dim/2")
+    return torch.cat(parts, dim=-1)
 
 
 def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
@@ -94,10 +124,14 @@ def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
 
 def init_mlp(generator, d_model: int, d_ff: int, act: str = "silu",
              dtype=torch.bfloat16, *, device="cpu") -> dict:
+    """The gated (SwiGLU) MLP ``{gate, up, down}`` for ``act="silu"``,
+    else the plain two-layer MLP ``{in, out}``."""
     if act != "silu":
-        raise NotImplementedError(
-            f"act={act!r}: only the gated silu MLP of the dense main path "
-            "is ported")
+        return {
+            "in": init_dense(generator, d_model, d_ff, dtype, device=device),
+            "out": init_dense(generator, d_ff, d_model, dtype,
+                              scale=d_ff ** -0.5, device=device),
+        }
     return {
         "gate": init_dense(generator, d_model, d_ff, dtype, device=device),
         "up": init_dense(generator, d_model, d_ff, dtype, device=device),
@@ -108,10 +142,15 @@ def init_mlp(generator, d_model: int, d_ff: int, act: str = "silu",
 
 def mlp(p: dict, x: torch.Tensor, act: str = "silu", mode="exact",
         dtype=None, path: str = "mlp") -> torch.Tensor:
-    if act != "silu":
-        raise NotImplementedError(f"act={act!r} is not ported")
+    """SwiGLU for ``act="silu"``; otherwise ``out(gelu(in(x)))`` with the
+    tanh form of gelu (``jax.nn.gelu``'s default), computed in f32."""
     if dtype is None:
         dtype = x.dtype
+    if act != "silu":
+        h = dense(p["in"], x, mode, dtype=dtype, path=f"{path}/in")
+        h = torch.nn.functional.gelu(h.to(torch.float32),
+                                     approximate="tanh").to(dtype)
+        return dense(p["out"], h, mode, dtype=dtype, path=f"{path}/out")
     x_in = x
     if backend_lib.residency_enabled(mode):
         x_in = backend_lib.shared_quant((p["gate"], p["up"]), x)

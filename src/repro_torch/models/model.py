@@ -1,6 +1,7 @@
 """LM wrapper: embeddings -> stack -> final norm -> head (port of the
-serving entry points of ``repro/models/model.py`` for the dense and MoE
-decoder families and the ssm and hybrid state-space families).
+serving entry points of ``repro/models/model.py`` for every family: the
+dense and MoE decoders, the ssm and hybrid state-space stacks, the
+encoder-decoder (whisper) and M-RoPE (qwen2-vl)).
 
   init(cfg, generator, device)                 -> params
   freeze_params(params, a_scale, plan)         -> deployed params
@@ -10,6 +11,14 @@ decoder families and the ssm and hybrid state-space families).
   prefill_paged(params, batch, cfg, ...)       -> (last logits, pages)
   prefill_chunk(params, tokens, cfg, ...)      -> (last logits, pages)
   decode_step(params, batch, caches, cfg)      -> (logits, caches)
+
+Batch keys (which are present depends on the arch's frontend):
+  tokens    [B, S] integer ids
+  embeds    [B, S, d] (vision_stub: token and patch embeddings merged
+            upstream; they replace the token embedding)
+  frames    [B, S_enc, d] (audio_stub: the encoder's frame embeddings)
+  positions [B, S] or [3, B, S] (M-RoPE t/h/w) integer ids, optional
+  length    the true prompt length of a right-padded ``tokens`` batch
 """
 from __future__ import annotations
 
@@ -38,6 +47,8 @@ def init(cfg, generator: torch.Generator, *, device="cuda") -> dict:
     if not cfg.tie_embeddings:
         p["lm_head"] = layers.init_lm_head(generator, cfg.d_model,
                                            cfg.padded_vocab, dt, device=dev)
+    if cfg.arch_type == "encdec":
+        p["enc_final_norm"] = layers.init_rmsnorm(cfg.d_model, device=dev)
     return p
 
 
@@ -107,10 +118,33 @@ def freeze_params(params, a_scale: float = 1.0, plan=None):
     return walk("", params)
 
 
+def _embed_inputs(params, batch, cfg):
+    """The stack's input: ``embeds`` (cast to the model dtype) when the
+    batch has them, else the token embedding."""
+    if "embeds" in batch:
+        return batch["embeds"].to(_dtype(cfg))
+    return layers.embed(params["embed"], batch["tokens"])
+
+
+def _encoder_out(params, batch, cfg, mode=None):
+    """The encoder over ``batch["frames"]``, final-normed."""
+    if "frames" not in batch:
+        raise ValueError("an encdec model needs batch['frames'], the "
+                         "encoder's frame embeddings [B, S_enc, d_model]")
+    h = transformer.apply_encoder(params["stack"],
+                                  batch["frames"].to(_dtype(cfg)), cfg,
+                                  mode=mode)
+    return layers.rmsnorm(params["enc_final_norm"], h, cfg.norm_eps)
+
+
 def forward(params, batch, cfg, *, mode=None):
     """Full-sequence forward to final hidden states.  Returns (h, aux)."""
-    x = layers.embed(params["embed"], batch["tokens"])
-    h, aux = transformer.apply_stack(params["stack"], x, cfg, mode=mode)
+    x = _embed_inputs(params, batch, cfg)
+    enc_out = (_encoder_out(params, batch, cfg, mode=mode)
+               if cfg.arch_type == "encdec" else None)
+    h, aux = transformer.apply_stack(params["stack"], x, cfg,
+                                     positions=batch.get("positions"),
+                                     mode=mode, enc_out=enc_out)
     return layers.rmsnorm(params["final_norm"], h, cfg.norm_eps), aux
 
 
@@ -140,21 +174,37 @@ def prefill(params, batch, cfg, *, max_len: int, mode=None):
     cursor is rewound past the pads, so decode overwrites them and the
     length masks exclude them: dense archs only, as in the JAX package
     (MoE capacity counts the pads; SSM state would integrate them).  The
-    JAX package's ``_prefill_stack`` for dense and MoE archs is the stack
-    pass over the dense cache, ``transformer.decode_stack``; ssm and
-    hybrid archs take :func:`_prefill_stack`."""
-    tokens = batch["tokens"]
+    JAX package's ``_prefill_stack`` for dense, MoE and encdec archs is
+    the stack pass over the dense cache, ``transformer.decode_stack``; ssm
+    and hybrid archs take :func:`_prefill_stack`.
+
+    An encdec model runs its encoder over ``batch["frames"]``, projects
+    every decoder layer's cross K/V once (``precompute_cross_kv``) into
+    the caches, then runs the decoder over ``tokens``.  ``embeds`` replace
+    the token embedding and ``positions`` (M-RoPE's [3, B, S]) reach every
+    self-attention layer."""
     if batch.get("length") is not None and cfg.arch_type != "dense":
         raise ValueError("bucketed prefill (batch['length']) is "
                          "dense-attention only")
-    dev = tokens.device
-    x = layers.embed(params["embed"], tokens)
+    x = _embed_inputs(params, batch, cfg)
+    dev = x.device
     b, s = x.shape[:2]
+    enc_out = None
+    if cfg.arch_type == "encdec":
+        enc_out = _encoder_out(params, batch, cfg, mode=mode)
     caches = transformer.init_caches(cfg, b, max_len, _dtype(cfg),
-                                     device=dev)
-    stack = (_prefill_stack if cfg.arch_type in ("ssm", "hybrid")
-             else transformer.decode_stack)
-    h, caches = stack(params["stack"], x, cfg, caches, mode=mode)
+                                     device=dev, enc_out=enc_out)
+    if enc_out is not None:
+        caches["cross_k"], caches["cross_v"] = \
+            transformer.precompute_cross_kv(params["stack"], enc_out, cfg,
+                                            mode=mode)
+    if cfg.arch_type in ("ssm", "hybrid"):
+        h, caches = _prefill_stack(params["stack"], x, cfg, caches,
+                                   mode=mode)
+    else:
+        h, caches = transformer.decode_stack(
+            params["stack"], x, cfg, caches,
+            positions=batch.get("positions"), mode=mode)
     length = batch.get("length")
     if length is None:
         h_last = h[:, -1:]
@@ -219,9 +269,12 @@ def prefill_chunk(params, tokens, cfg, *, pages, block_tables, pos, n_tok,
 
 
 def decode_step(params, batch, caches, cfg, *, mode=None):
-    """One token for every row.  Returns (logits [B, 1, V], caches)."""
-    x = layers.embed(params["embed"], batch["tokens"])
+    """One token for every row.  Returns (logits [B, 1, V], caches).
+    Without ``batch["positions"]`` the positions follow the cache's length
+    (under M-RoPE the same on every axis), as in the JAX package."""
+    x = _embed_inputs(params, batch, cfg)
     h, caches = transformer.decode_stack(params["stack"], x, cfg, caches,
+                                         positions=batch.get("positions"),
                                          mode=mode)
     h = layers.rmsnorm(params["final_norm"], h, cfg.norm_eps)
     return logits_fn(params, h, cfg, mode), caches

@@ -1,6 +1,4 @@
-"""Decoder blocks and the layer stack (port of the ``dense``, ``moe``,
-``ssm`` and ``hybrid`` families of ``repro/models/transformer.py``;
-``encdec`` raises until its slice).
+"""Blocks and the layer stack (port of ``repro/models/transformer.py``).
 
   dense   pre-norm attn + MLP residual blocks
   moe     pre-norm attn + MoE FFN
@@ -8,14 +6,17 @@
   hybrid  Mamba-2 backbone + one weight-SHARED attention block applied at
           the start of every group of ``hybrid_attn_interval`` layers
           (zamba2: shared weights, a KV cache per group)
+  encdec  bidirectional encoder + causal decoder with cross-attention
+          (whisper: ``{"encoder": [...], "decoder": [...]}``)
 
 The JAX package stacks layers on a leading ``[L, ...]`` axis for
-``lax.scan``; here ``params["blocks"]`` is a list of per-layer dicts and
-the stack is a Python loop.  The paged KV pool keeps its leading layer
-axis (``[L, NB, BS, KVH, D]``), as do the dense caches of
-``Engine.generate`` and the recurrent states (``[L, B, H, P, N]``; a
-hybrid's KV caches have one entry per group), and each layer works on its
-``[l]`` view, so in-place writes land in the shared tensors.
+``lax.scan``; here ``params["blocks"]`` (``encoder`` / ``decoder``) is a
+list of per-layer dicts and the stack is a Python loop.  The paged KV pool
+keeps its leading layer axis (``[L, NB, BS, KVH, D]``), as do the dense
+caches of ``Engine.generate``, the cross K/V (``[L, B, S_enc, KVH, D]``)
+and the recurrent states (``[L, B, H, P, N]``; a hybrid's KV caches have
+one entry per group), and each layer works on its ``[l]`` view, so
+in-place writes land in the shared tensors.
 """
 from __future__ import annotations
 
@@ -39,10 +40,11 @@ def init_dense_block(generator, cfg, dtype, *, device="cpu") -> dict:
     }
 
 
-def dense_block(p, x, cfg, *, cache=None, mode=None):
+def dense_block(p, x, cfg, *, cache=None, positions=None, causal=True,
+                mode=None):
     h, new_cache = attn_lib.attention(
         p["attn"], layers.rmsnorm(p["attn_norm"], x, cfg.norm_eps), cfg,
-        kv_cache=cache, mode=mode)
+        positions=positions, causal=causal, kv_cache=cache, mode=mode)
     x = x + h
     x = x + layers.mlp(p["mlp"],
                        layers.rmsnorm(p["mlp_norm"], x, cfg.norm_eps),
@@ -62,11 +64,11 @@ def init_moe_block(generator, cfg, dtype, *, device="cpu") -> dict:
     }
 
 
-def moe_block(p, x, cfg, *, cache=None, mode=None):
+def moe_block(p, x, cfg, *, cache=None, positions=None, mode=None):
     """Returns (x, new_cache, aux_loss)."""
     h, new_cache = attn_lib.attention(
         p["attn"], layers.rmsnorm(p["attn_norm"], x, cfg.norm_eps), cfg,
-        kv_cache=cache, mode=mode)
+        positions=positions, kv_cache=cache, mode=mode)
     x = x + h
     y, aux = moe_lib.moe(p["moe"],
                          layers.rmsnorm(p["moe_norm"], x, cfg.norm_eps),
@@ -90,15 +92,40 @@ def ssm_block(p, x, cfg, *, state=None, mode=None,
     return x + h, new_state
 
 
+def init_decoder_block(generator, cfg, dtype, *, device="cpu") -> dict:
+    """An encoder-decoder model's decoder block: a dense block plus the
+    cross-attention and its norm."""
+    blk = init_dense_block(generator, cfg, dtype, device=device)
+    blk["xattn_norm"] = layers.init_rmsnorm(cfg.d_model, device=device)
+    blk["xattn"] = attn_lib.init_attention(
+        generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+        cfg.resolved_head_dim, cfg.qk_norm, dtype, device=device)
+    return blk
+
+
+def decoder_block(p, x, cfg, *, cache=None, xattn_kv=None, xattn_cache=None,
+                  positions=None, mode=None):
+    """Causal self-attention (over ``cache`` when given), cross-attention
+    to the encoder (its output ``xattn_kv``, or the projected
+    ``xattn_cache``), then the MLP.  Returns x."""
+    h, _ = attn_lib.attention(
+        p["attn"], layers.rmsnorm(p["attn_norm"], x, cfg.norm_eps), cfg,
+        positions=positions, causal=True, kv_cache=cache, mode=mode)
+    x = x + h
+    h, _ = attn_lib.attention(
+        p["xattn"], layers.rmsnorm(p["xattn_norm"], x, cfg.norm_eps), cfg,
+        xattn_kv=xattn_kv, xattn_cache=xattn_cache, mode=mode)
+    x = x + h
+    return x + layers.mlp(p["mlp"],
+                          layers.rmsnorm(p["mlp_norm"], x, cfg.norm_eps),
+                          cfg.act, mode or cfg.linear_mode)
+
+
 def _arch(cfg) -> str:
-    """The ported arch families (the JAX package's dispatch); the rest
-    raise, by name."""
+    """The arch families (the JAX package's dispatch)."""
     at = cfg.arch_type
-    if at in ("dense", "moe", "ssm", "hybrid"):
+    if at in ("dense", "moe", "ssm", "hybrid", "encdec"):
         return at
-    if at == "encdec":
-        raise NotImplementedError(
-            f"arch_type {at!r} is not ported yet (ROADMAP queue 1)")
     raise ValueError(f"unknown arch_type {at!r}")
 
 
@@ -112,20 +139,30 @@ def _n_groups(cfg) -> int:
     return cfg.n_layers // interval
 
 
-def _block(blk, x, cfg, *, cache=None, mode=None):
+def _block(blk, x, cfg, *, cache=None, positions=None, mode=None):
     """One dense or MoE block: (x, aux_loss)."""
     if cfg.arch_type == "moe":
-        x, _, aux = moe_block(blk, x, cfg, cache=cache, mode=mode)
+        x, _, aux = moe_block(blk, x, cfg, cache=cache, positions=positions,
+                              mode=mode)
         return x, aux
-    x, _ = dense_block(blk, x, cfg, cache=cache, mode=mode)
+    x, _ = dense_block(blk, x, cfg, cache=cache, positions=positions,
+                       mode=mode)
     return x, 0.0
 
 
 def init_stack(generator, cfg, dtype=torch.bfloat16, *, device="cpu"
                ) -> dict:
     """``{"blocks": [per-layer dicts]}``; a hybrid stack adds its one
-    ``shared_attn`` dense block."""
+    ``shared_attn`` dense block; an encdec stack is ``{"encoder":
+    [n_enc_layers dense blocks], "decoder": [n_layers decoder blocks]}``."""
     at = _arch(cfg)
+    if at == "encdec":
+        return {"encoder": [init_dense_block(generator, cfg, dtype,
+                                             device=device)
+                            for _ in range(cfg.n_enc_layers)],
+                "decoder": [init_decoder_block(generator, cfg, dtype,
+                                               device=device)
+                            for _ in range(cfg.n_layers)]}
     init = {"moe": init_moe_block, "ssm": init_ssm_block,
             "hybrid": init_ssm_block}.get(at, init_dense_block)
     stack = {"blocks": [init(generator, cfg, dtype, device=device)
@@ -164,22 +201,56 @@ def recurrent_stack(params, x, cfg, caches: dict, *, mode=None,
     return x
 
 
-def apply_stack(params, x, cfg, *, mode=None):
+def apply_stack(params, x, cfg, *, positions=None, mode=None,
+                enc_out=None):
     """Full-sequence forward (no caches).  Returns (hidden, aux_loss): the
-    MoE layers' summed Switch loss, 0 for the other stacks."""
+    MoE layers' summed Switch loss, 0 for the other stacks.  An encdec
+    stack runs its decoder, cross-attending ``enc_out``
+    (:func:`apply_encoder`)."""
     at = _arch(cfg)
     if at in ("ssm", "hybrid"):
         interval = cfg.hybrid_attn_interval
         for i, blk in enumerate(params["blocks"]):
             if at == "hybrid" and i % interval == 0:
-                x, _ = dense_block(params["shared_attn"], x, cfg, mode=mode)
+                x, _ = dense_block(params["shared_attn"], x, cfg,
+                                   positions=positions, mode=mode)
             x, _ = ssm_block(blk, x, cfg, mode=mode)
+        return x, 0.0
+    if at == "encdec":
+        if enc_out is None:
+            raise ValueError("an encdec stack needs the encoder output "
+                             "(enc_out)")
+        for blk in params["decoder"]:
+            x = decoder_block(blk, x, cfg, xattn_kv=enc_out,
+                              positions=positions, mode=mode)
         return x, 0.0
     aux = 0.0
     for blk in params["blocks"]:
-        x, a = _block(blk, x, cfg, mode=mode)
+        x, a = _block(blk, x, cfg, positions=positions, mode=mode)
         aux = aux + a
     return x, aux
+
+
+def apply_encoder(params, frames, cfg, *, mode=None):
+    """Bidirectional encoder over (stub) frame embeddings [B, S_enc, d]."""
+    for blk in params["encoder"]:
+        frames, _ = dense_block(blk, frames, cfg, causal=False, mode=mode)
+    return frames
+
+
+def precompute_cross_kv(params, enc_out, cfg, mode=None):
+    """Every decoder layer's cross K/V from the encoder output, once per
+    prefill: ``([L, B, S_enc, KVH, D], [L, B, S_enc, KVH, D])``."""
+    b, s, _ = enc_out.shape
+    hd = cfg.resolved_head_dim
+    mode = mode or cfg.linear_mode
+    ks, vs = [], []
+    for blk in params["decoder"]:
+        for name, out in (("k", ks), ("v", vs)):
+            out.append(layers.dense(blk["xattn"][name], enc_out, mode,
+                                    path=f"xattn/{name}").reshape(
+                b, s, cfg.n_kv_heads, hd))
+    return torch.stack(ks), torch.stack(vs)
 
 
 def _layer(pages, i):
@@ -190,7 +261,7 @@ def _layer(pages, i):
 
 
 def init_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
-                device="cpu") -> dict:
+                device="cpu", enc_out=None) -> dict:
     """Zero caches for ``Engine.generate``.  Attention stacks get dense KV
     caches ``{"kv": {k, v, len[, k_scale, v_scale]}}`` with a leading
     layer axis (``len`` is ``[L]`` int32).  An int8 cache
@@ -200,8 +271,14 @@ def init_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
     positions, always in ``dtype`` (a window turns the int8 cache off, as
     in the JAX package).  An ssm stack gets ``{"ssm": {ssm, conv}}``
     (``[L, ...]`` recurrent states: f32, the conv's in ``dtype``); a
-    hybrid both, its ``kv`` with one entry per group."""
+    hybrid both, its ``kv`` with one entry per group.  An encdec stack
+    gets its decoder's KV caches and zero ``cross_k`` / ``cross_v``
+    ``[L, B, S_enc, KVH, D]`` in ``dtype`` (never int8), shaped by
+    ``enc_out`` [B, S_enc, d]."""
     at = _arch(cfg)
+    if at == "encdec" and enc_out is None:
+        raise ValueError("encdec caches need the encoder output's shape "
+                         "(enc_out)")
     caches = {}
     if at in ("ssm", "hybrid"):
         st = mamba2.init_mamba_state(batch, cfg.d_model, cfg.ssm, dtype,
@@ -226,25 +303,42 @@ def init_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
             kv[name] = torch.zeros(shape[:-1], dtype=torch.bfloat16,
                                    device=device)
     caches["kv"] = kv
+    if at == "encdec":
+        cross = (n, batch, enc_out.shape[1], cfg.n_kv_heads,
+                 cfg.resolved_head_dim)
+        caches["cross_k"] = torch.zeros(cross, dtype=dtype, device=device)
+        caches["cross_v"] = torch.zeros(cross, dtype=dtype, device=device)
     return caches
 
 
-def decode_stack(params, x, cfg, caches: dict, *, mode=None):
+def decode_stack(params, x, cfg, caches: dict, *, positions=None,
+                 mode=None):
     """Decode (S == 1) or prefill (S > 1) pass through the stack over a
     paged pool or a dense cache.  ``caches["kv"]`` holds the pool ``{k,
     v}`` or the dense cache ``{k, v, len[, k_scale, v_scale]}``, each with
     a leading layer axis; a pool's block tables / lengths / write mask /
     chunk lengths / decode pages per split are layer-invariant.  An ssm or
     hybrid stack takes one recurrent step (S == 1) over its states
-    (``recurrent_stack``).  Caches are updated in place; returns (hidden,
-    caches)."""
-    if _arch(cfg) in ("ssm", "hybrid"):
+    (``recurrent_stack``); an encdec decoder cross-attends
+    ``caches["cross_k"/"cross_v"]``.  ``positions`` (a prefill's, e.g.
+    M-RoPE's [3, B, S]) default to the cache's.  Caches are updated in
+    place; returns (hidden, caches)."""
+    at = _arch(cfg)
+    if at in ("ssm", "hybrid"):
         return recurrent_stack(params, x, cfg, caches, mode=mode), caches
     if "block_tables" not in caches:
         kv = caches["kv"]
-        for i, blk in enumerate(params["blocks"]):
-            x, _ = _block(blk, x, cfg, mode=mode,
-                          cache={name: t[i] for name, t in kv.items()})
+        for i, blk in enumerate(params["decoder" if at == "encdec"
+                                       else "blocks"]):
+            cache = {name: t[i] for name, t in kv.items()}
+            if at == "encdec":
+                x = decoder_block(blk, x, cfg, cache=cache,
+                                  positions=positions, mode=mode,
+                                  xattn_cache={"k": caches["cross_k"][i],
+                                               "v": caches["cross_v"][i]})
+            else:
+                x, _ = _block(blk, x, cfg, cache=cache, positions=positions,
+                              mode=mode)
         return x, caches
     shared = {key: caches[key]
               for key in ("block_tables", "lens", "write_mask", "chunk_len",
@@ -253,5 +347,5 @@ def decode_stack(params, x, cfg, caches: dict, *, mode=None):
     pages = caches["kv"]
     for i, blk in enumerate(params["blocks"]):
         kv = dict(k=_layer(pages["k"], i), v=_layer(pages["v"], i), **shared)
-        x, _ = _block(blk, x, cfg, cache=kv, mode=mode)
+        x, _ = _block(blk, x, cfg, cache=kv, positions=positions, mode=mode)
     return x, caches

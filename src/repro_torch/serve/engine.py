@@ -1,6 +1,7 @@
 """Serving engine: bucketed prefill into dense KV caches (or, for the ssm
-and hybrid archs, recurrent states beside them), then decode with greedy
-or seeded sampling (port of ``repro/serve/engine.py``).
+and hybrid archs, recurrent states beside them; for the encoder-decoder,
+the cross K/V beside them), then decode with greedy or seeded sampling
+(port of ``repro/serve/engine.py``).
 
 * **Bucketed prefill** -- prompt lengths are right-padded to
   ``seq_bucket`` multiples with the true length threaded to
@@ -189,33 +190,58 @@ class Engine:
 
     # ---------------------------------------------------------- generate
 
+    def _refuses_overflow(self) -> bool:
+        """Whether a cache sized by ``max_len`` holds every position: a
+        dense KV cache does (a dense or MoE stack, hybrid's shared-attention
+        caches, whisper's decoder), so a request past ``max_len`` is
+        refused where the JAX package's clamped write would overwrite the
+        last slot.  An ssm stack keeps a constant-size state and a sliding
+        window of ``window <= max_len`` keeps a ring of ``window`` slots:
+        both are exact past ``max_len``, as in the JAX package."""
+        window = self.cfg.sliding_window
+        return not (self.cfg.arch_type == "ssm"
+                    or (window is not None and window <= self.max_len))
+
     def generate(self, batch: dict, *, max_new_tokens: int = 32,
                  temperature: float = 0.0, key=None, plan=None,
                  stop_tokens: Sequence[int] | None = None,
                  pad_token: int = 0, request_ids=None,
                  decode_loop: str = "scan") -> GenerationResult:
-        """Generate up to ``max_new_tokens`` per sequence of
-        ``batch["tokens"]`` ``[B, S]`` (optionally pre-bucketed with its
-        ``length``).
+        """Generate up to ``max_new_tokens`` per sequence of the batch:
+        ``tokens`` ``[B, S]`` (optionally pre-bucketed with its
+        ``length``); an encdec model's ``frames`` ``[B, S_enc, d]`` beside
+        its decoder prompt ``tokens``; or ``embeds`` ``[B, S, d]`` (with
+        optional M-RoPE ``positions`` ``[3, B, S]``) in place of tokens.
+        Decode steps embed the sampled tokens.
 
         ``temperature > 0`` with a ``key`` (a ``prng`` key, or a JAX key's
         ``uint32[2]`` data) samples; otherwise decoding is greedy.
         ``request_ids`` ([B] ints, default ``arange(B)``) seed each row's
         sampler.  ``stop_tokens`` marks a row done once it emits any of the
-        ids; finished rows emit ``pad_token`` with logprob 0.  The prompt
-        plus ``max_new_tokens`` must fit in ``max_len``."""
+        ids; finished rows emit ``pad_token`` with logprob 0.  Where a
+        dense KV cache holds the context (every arch but ssm and a ring of
+        ``window <= max_len``), the prompt plus ``max_new_tokens`` must
+        fit in ``max_len``."""
         if decode_loop not in ("scan", "eager"):
             raise ValueError(f"decode_loop must be 'scan' or 'eager', "
                              f"got {decode_loop!r}")
-        if "tokens" not in batch:
-            raise ValueError(f"batch has no token input: {set(batch)}")
+        lead = next((k for k in ("tokens", "embeds", "frames")
+                     if k in batch), None)
+        if lead is None:
+            raise ValueError(f"batch has no sequence input: {set(batch)}")
         plan = self.plan if plan is None else backend_lib.as_plan(plan)
         dev = self.device
-        batch = dict(batch, tokens=torch.as_tensor(
-            batch["tokens"], device=dev).long())
-        b, s = batch["tokens"].shape
+        batch = dict(batch)
+        for k in ("tokens", "positions"):
+            if k in batch:
+                batch[k] = torch.as_tensor(batch[k], device=dev).long()
+        for k in ("embeds", "frames"):
+            if k in batch:
+                batch[k] = torch.as_tensor(batch[k], device=dev)
+        b, s = batch[lead].shape[:2]
         length = int(batch.get("length", s))
-        if length + max_new_tokens > self.max_len:
+        if (self._refuses_overflow()
+                and length + max_new_tokens > self.max_len):
             raise ValueError(
                 f"prompt {length} + max_new_tokens {max_new_tokens} exceeds "
                 f"max_len {self.max_len}")

@@ -223,8 +223,9 @@ def test_unported_dense_shapes_raise():
     """Sliding windows get a ring cache of min(max_len, window) positions
     and prompts over 2048 tokens go through attend_chunked, which keeps
     the JAX package's requirement of whole 512-token query chunks (a
-    2049-token prompt raises where JAX asserts).  The family not ported
-    yet (encdec) raises by name, never falls back."""
+    2049-token prompt raises where JAX asserts).  An encdec stack's
+    caches need the encoder output's shape: ``init_caches`` without
+    ``enc_out`` raises where JAX asserts."""
     from repro_torch.models import transformer
     tc = tcfg.reduced_config("qwen3-8b", n_layers=1)
     params = TM.init(tc, torch.Generator().manual_seed(0), device="cpu")
@@ -234,6 +235,57 @@ def test_unported_dense_shapes_raise():
     toks = torch.zeros(1, 2049, dtype=torch.long)
     with pytest.raises(ValueError, match="q_chunk"):
         TM.prefill(params, {"tokens": toks}, tc, max_len=2056)
-    with pytest.raises(NotImplementedError, match="encdec"):
-        transformer.init_caches(dataclasses.replace(tc, arch_type="encdec"),
+    with pytest.raises(ValueError, match="enc_out"):
+        transformer.init_caches(tcfg.reduced_config("whisper-large-v3"),
                                 1, 16, device="cpu")
+
+
+# Past max_len: (arch, layers, max_len, prompt length).  mamba2's state is
+# constant-size; h2o-danube's reduced window of 8 keeps a ring of 8 slots
+# inside a max_len of 16.  Prompts are whole SSD chunks (8) for mamba2.
+PAST_MAX_LEN = {"mamba2-1.3b": (2, 16, 16), "h2o-danube-3-4b": (2, 16, 12)}
+
+
+def _family_engines(arch, layers, max_len, sliding_window=None):
+    jc = jcfg.reduced_config(arch, n_layers=layers)
+    tc = tcfg.reduced_config(arch, n_layers=layers)
+    if sliding_window is not None:
+        jc = dataclasses.replace(jc, sliding_window=sliding_window)
+        tc = dataclasses.replace(tc, sliding_window=sliding_window)
+    jplan, tplan = jb.DeploymentPlan(default="w8a8"), tb.DeploymentPlan(
+        default="w8a8_kernel")
+    jp = JM.freeze_params(JM.init(jax.random.PRNGKey(0), jc), a_scale=0.05,
+                          plan=jplan)
+    tp = convert.params_from_jax(jax.tree.map(np.asarray, jp), tc)
+    return (JEngine(jp, jc, plan=jplan, max_len=max_len),
+            TEngine(tp, tc, plan=tplan, max_len=max_len, device="cpu"))
+
+
+@pytest.mark.parametrize("arch", sorted(PAST_MAX_LEN))
+def test_generate_past_max_len_matches_jax(arch):
+    """An ssm stack and a ring of window <= max_len hold no cache that
+    max_len bounds: both decode past max_len with JAX's tokens, greedy
+    and sampled, in both loops."""
+    max_len, s = PAST_MAX_LEN[arch][1:]
+    je, te = _family_engines(arch, PAST_MAX_LEN[arch][0], max_len)
+    toks = _prompts(2, s, seed=6)
+    jk, tk = _key(5)
+    new = max_len - s + 6
+    for temperature in (0.0, 0.8):
+        kw = dict(max_new_tokens=new, temperature=temperature)
+        jr = je.generate({"tokens": jnp.asarray(toks)}, key=jk, **kw)
+        for loop in ("scan", "eager"):
+            _assert_same(jr, te.generate({"tokens": toks}, key=tk,
+                                         decode_loop=loop, **kw))
+
+
+@pytest.mark.parametrize("arch,layers,window", [
+    ("qwen3-8b", 2, None), ("zamba2-2.7b", 2, None),
+    ("h2o-danube-3-4b", 2, 24)])
+def test_generate_past_max_len_refused(arch, layers, window):
+    """A dense KV cache sized by max_len (a dense stack, hybrid's shared
+    attention block, a window longer than max_len) still refuses a
+    request past it."""
+    _, te = _family_engines(arch, layers, 16, sliding_window=window)
+    with pytest.raises(ValueError, match="exceeds max_len"):
+        te.generate({"tokens": _prompts(1, 8)}, max_new_tokens=9)

@@ -157,13 +157,22 @@ FAMILY_KN = {
     # shared attention block's q/k/v/o and MLP; head 32000.
     "zamba2-2.7b": ((2560, 10448), (5120, 2560), (2560, 2560),
                     (2560, 10240), (10240, 2560), (2560, 32000)),
+    # q/k/v/o and the cross-attention's (MHA), the gelu MLP's in and out,
+    # head 51968 (the vocab 51866 padded to a multiple of 256).
+    "whisper-large-v3": ((1280, 1280), (1280, 5120), (5120, 1280),
+                         (1280, 51968)),
+    "qwen2-vl-72b": ((8192, 8192), (8192, 1024), (8192, 29568),
+                     (29568, 8192), (8192, 152064)),
 }
 # M of the family's calls: decode rows, prompt lengths, and an expert
 # bank's G*C rows (a dropless 64-token prompt; capacity 60 for moonshot
 # and 160 for granite at a 512-token prompt); the state-space runs'
-# prompts of 192, 1024 and 4096 tokens and their batch of 4 x 512.
-FAMILY_M = (1, 4, 8, 60, 64, 160, 192, 200, 512, 1024, 2048, 2560, 4096,
-            4608)
+# prompts of 192, 1024 and 4096 tokens and their batch of 4 x 512;
+# whisper's decoder prompts at batch 4 (16, 256) and its encoder's 1500
+# frames at batch 1 and 4 (M not a multiple of any row tile); qwen2-vl's
+# 288-token image prompt.
+FAMILY_M = (1, 4, 8, 16, 60, 64, 160, 192, 200, 256, 288, 512, 1024, 1500,
+            2048, 2560, 4096, 4608, 6000)
 
 
 def _family_kn(cfg):
@@ -206,13 +215,19 @@ def test_family_shapes_get_a_valid_config(arch, sms):
     *(pytest.param(k, n, np.int8, id=f"{k}-{n}") for k, n in (
         (2048, 1408), (1408, 2048), (1024, 512), (512, 1024))),
     # The SSM projections (zamba2's in_proj, mamba2's in_proj and
-    # out_proj) take f32 activations.
+    # out_proj), whisper's linears and head, and qwen2-vl's q/o and k/v
+    # take f32 activations.  (qwen2-vl's MLP and head, 0.24-1.25 G
+    # weights, are held on the card only: the float64 product here would
+    # take 2-10 GB.)
     *(pytest.param(k, n, np.float32, id=f"{k}-{n}-f32") for k, n in (
-        (2560, 10448), (2048, 8512), (4096, 2048)))])
+        (2560, 10448), (2048, 8512), (4096, 2048), (1280, 1280),
+        (1280, 5120), (5120, 1280), (1280, 51968), (8192, 8192),
+        (8192, 1024)))])
 @pytest.mark.parametrize("m", [1, 60])
 def test_bank_shapes_bit_exact(k, n, act, m):
-    """K1's CPU path equals the JAX reference at the expert-bank and SSM
-    projection (K, N), with the activations the serving path passes: the
+    """K1's CPU path equals the JAX reference at the expert-bank, SSM
+    projection and multimodal (K, N), with the activations the serving
+    path passes: the
     banks' int8 codes, or f32 that the wrapper quantises
     (``clip(rint(a / a_scale))``) where the reference takes the codes."""
     rng = np.random.default_rng(k + n + m)

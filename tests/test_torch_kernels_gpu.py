@@ -664,3 +664,93 @@ def test_ssm_generate_matches_plain(hopper, arch, layers, monkeypatch):
     want = serve()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [8, 512, 1500])
+@pytest.mark.parametrize("k,n", [(1280, 1280), (1280, 5120), (5120, 1280),
+                                 (8192, 1024), (29568, 8192)])
+def test_cim_matmul_multimodal_shapes_bit_exact(hopper, k, n, m):
+    """K1 at whisper's and qwen2-vl's (K, N), f32 and int8 activations,
+    at decode and prefill M and at whisper's encoder M of 1500 frames (not
+    a multiple of any row tile); qwen2-vl's down projection has K =
+    29568."""
+    gen = torch.Generator(device="cuda").manual_seed(k + n + m)
+    w = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                      dtype=torch.int32).to(torch.int8)
+    ws = torch.rand(n, generator=gen, device="cuda") * 1e-3 + 1e-4
+    bias = torch.zeros(n, device="cuda")
+    one = torch.tensor(1.0, device="cuda")
+    a32 = torch.randn(m, k, generator=gen, device="cuda") * 2.0
+    a8 = torch.randint(-128, 128, (m, k), generator=gen, device="cuda",
+                       dtype=torch.int32).to(torch.int8)
+    for a in (a32, a8):
+        args = (a, w, torch.tensor(0.05, device="cuda"), ws, bias, one)
+        assert torch.equal(cim_ops.cim_matmul_kernel(*args),
+                           cim_ops.cim_matmul_plain(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "qwen2-vl-72b"])
+def test_multimodal_generate_matches_plain(hopper, arch, monkeypatch):
+    """A reduced whisper (2 + 2 layers over 96 frames) or qwen2-vl (2
+    layers, embeds with image positions and token prompts), d_model 256,
+    int8 self-attention KV caches, frozen under w8a8_kernel and served
+    greedily by Engine.generate: identical tokens through the kernels and
+    through their plain versions, and K1 launched once per deployed
+    linear: a decoder pass's 8 (whisper) or 7 a layer and the head, and
+    each whisper prefill's encoder (6 a layer) and cross K/V (2 a
+    layer)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.core import backend
+    from repro_torch.models import model as M
+    from repro_torch.serve import Engine
+    cfg = dataclasses.replace(
+        configs.reduced_config(arch, n_layers=2, d_model=256),
+        head_dim=64, kv_cache_dtype="int8")
+    if cfg.mrope_sections is not None:
+        cfg = dataclasses.replace(cfg, mrope_sections=(16, 8, 8))
+    plan = backend.load_plan("w8a8_kernel")
+    params = M.freeze_params(
+        M.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+               device="cuda"), a_scale=0.05, plan=plan)
+    rng = np.random.default_rng(2)
+
+    def embeds(*shape):
+        return (rng.standard_normal((*shape, 256)) / 16).astype(np.float32)
+
+    if cfg.arch_type == "encdec":
+        batches = [{"frames": embeds(1, 96),
+                    "tokens": rng.integers(0, cfg.vocab, (1, 4))},
+                   {"frames": embeds(3, 96),
+                    "tokens": rng.integers(0, cfg.vocab, (3, 16))}]
+        per_pass, prefill_extra = 2 * 8 + 1, 2 * 6 + 2 * 2
+    else:
+        pos = np.concatenate([np.stack([np.arange(4)] * 3),
+                              np.stack([np.full(16, 4),
+                                        4 + np.repeat(np.arange(4), 4),
+                                        4 + np.tile(np.arange(4), 4)])],
+                             axis=1)[:, None]
+        batches = [{"embeds": embeds(1, 20), "positions": pos},
+                   {"embeds": embeds(1, 20)},
+                   {"tokens": rng.integers(0, cfg.vocab, (2, 9))}]
+        per_pass, prefill_extra = 2 * 7 + 1, 0
+    new = 8
+
+    def serve():
+        eng = Engine(params, cfg, max_len=64, plan=plan, device="cuda")
+        return [eng.generate(b, max_new_tokens=new).tokens.cpu()
+                for b in batches]
+
+    cim_ops.launches = 0
+    got = serve()
+    assert cim_ops.launches == len(batches) * ((new + 1) * per_pass
+                                               + prefill_extra)
+    _plain_versions(monkeypatch)
+    want = serve()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
