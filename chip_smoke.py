@@ -57,7 +57,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
                system prompt (two repeating another whole), uncached and
                cached, blocking and chunked (hits, copy-on-write copies,
                suffix prefills through K3; blocking first tokens gated by
-               the main phase's logit rule, chunked streams equal);
+               the main phase's logit rule, chunked streams equal, an
+               exact-full-prompt hit's first token by the logit rule
+               against the floor between the uncached chunks and a
+               recompute of the last block);
                a page-out storm on a pool 8 blocks short (streams equal
                the unpressured run's); a drain into a snapshot in a
                temporary directory, restored into a fresh engine and
@@ -103,20 +106,38 @@ Phases (each prints one JSON line; any failure exits non-zero):
                runs' first-token logits move with whisper's frames and
                with qwen2-vl's image positions; tokens per wall second,
                decode-step ms, peak memory.
-9. vgg8     -- the paper's VGG-8 deployment path (repro_torch.launch.fig10)
+9. train    -- in a child process with CUBLAS_WORKSPACE_CONFIG set (so
+               cuBLAS is deterministic there and as before elsewhere):
+               granite-moe-1b-a400m at its published size (24 layers,
+               ~1.385 B parameters, bf16) trained under the qat plan with
+               AdamW from model.init at seed 0, every block
+               rematerialized, deterministic algorithms, no TF32: 8 steps
+               on one fixed 8 x 256-token batch (every loss and grad norm
+               finite and above 0, the loss falling), then 2 steps under
+               the profiler (busy share); step ms, tokens per second,
+               peak memory.  The trained model, optimizer state freed,
+               frozen block by block under w8a8_kernel (routers float)
+               and served through Engine.generate (4 prompts of 64 and
+               128 tokens, 16 new): every request OK, K1 exactly stack
+               passes x per-pass count, prefill logits within 1.5x the
+               reordering floor.  Then train_loop.run at full width and
+               2 of 24 layers, 6 steps straight against 3 and a resume
+               to 6 in a temporary directory: params, m, v and losses
+               bit-identical.
+10. vgg8    -- the paper's VGG-8 deployment path (repro_torch.launch.fig10)
                at its published widths with random weights from a seed:
                w8a8_kernel (with and without residency) and
                bitserial_kernel logits bit-identical to their plain plans,
                the cim plan with 8 sampled chips, calibrated full scales
                and per-channel fine-tunes, and the CAAT macro op on every
                cim layer's int8 inputs against the behavioural simulation.
-10. the ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
+11. the ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 ``--skip-main`` stops after the kernel phase (a quick kernel check);
-``--only families`` (comma-separated phase names) runs only the named
-serving phases after it, and ``--runs encdec,mrope`` only the named runs
-of the families phase.
+``--only families`` (comma-separated phase names, e.g. ``train``) runs
+only the named serving phases after it, and ``--runs encdec,mrope`` only
+the named runs of the families phase.
 ``--k5-only --src DIR`` only times the whole CAAT macro op at every VGG-8
 shape, with the ``repro_torch`` package of another tree (a parent commit
 unpacked beside this one).  Long output goes to
@@ -1125,9 +1146,14 @@ def serving_requests(torch, cfg):
 
 
 def chunked_prefill_logits(torch, params, cfg, prompt, mode, *, chunk,
-                           device):
+                           device, recompute_tail: int = 0):
     """One prompt's last logits through model.prefill_chunk over a fresh
-    bf16 pool of 16-token blocks."""
+    pool of 16-token blocks (int8 under an int8 ``cfg``).  With
+    ``recompute_tail`` also the logits of the prompt's last
+    ``recompute_tail`` tokens prefilled once more as one chunk over the
+    pages the prompt left, its page writes masked: what an
+    exact-full-prompt prefix hit computes.  Returns the logits, or
+    (logits, recomputed logits)."""
     from repro_torch.models import model as M
     from repro_torch.serve import kv_pool
     n = len(prompt)
@@ -1137,17 +1163,24 @@ def chunked_prefill_logits(torch, params, cfg, prompt, mode, *, chunk,
     tables = torch.arange(1, nblk + 1, dtype=torch.int32,
                           device=device)[None]
     prompt = torch.as_tensor(prompt, device=device).long()
-    for c0 in range(0, n, chunk):
-        cnt = min(chunk, n - c0)
+    starts = list(range(0, n, chunk))
+    if recompute_tail:
+        starts.append(n - recompute_tail)
+    out = []
+    for i, c0 in enumerate(starts):
+        end = min(c0 + chunk, n)
         toks = torch.zeros(1, chunk, dtype=torch.long, device=device)
-        toks[0, :cnt] = prompt[c0:c0 + cnt]
+        toks[0, :end - c0] = prompt[c0:end]
         lg, pages = M.prefill_chunk(
             params, toks, cfg, pages=pages, block_tables=tables,
             pos=torch.tensor([c0], device=device),
-            n_tok=torch.tensor([cnt], device=device),
-            write_mask=torch.tensor([True], device=device),
+            n_tok=torch.tensor([end - c0], device=device),
+            write_mask=torch.tensor([i < len(starts) - 1 or not
+                                     recompute_tail], device=device),
             has_past=c0 > 0, mode=mode)
-    return lg[0, :cfg.vocab].float()
+        if end == n:
+            out.append(lg[0, :cfg.vocab].float())
+    return tuple(out) if recompute_tail else out[0]
 
 
 def reset_launches(cim_ops, paged_ops):
@@ -1667,6 +1700,18 @@ def stream_gate(ref: dict, got: dict, what: str):
             "max_logprob_diff_before_divergence": floor}, failures
 
 
+def exact_hits(ce, reqs, block_size: int) -> dict:
+    """{rid: suffix start} of the requests of ``ce``'s last run that were
+    exact-full-prompt prefix hits (only their last block recomputed),
+    from the engine's trace."""
+    lens = {r.rid: r.prompt_len for r in reqs}
+    return {ev["tid"] - ce.tracer.req_tid(0): ev["args"]["suffix_start"]
+            for ev in ce.tracer.to_chrome()["traceEvents"]
+            if ev["name"] == "prefix_hit"
+            and lens.get(ev["tid"] - ce.tracer.req_tid(0), 0)
+            - ev["args"]["suffix_start"] <= block_size}
+
+
 def durable_path(torch, cfg, cim_ops, paged_ops, *, device="cuda",
                  chunk: int = 64, cache=None):
     """The durable serving modes at ``cfg``'s widths (the main path's
@@ -1677,7 +1722,10 @@ def durable_path(torch, cfg, cim_ops, paged_ops, *, device="cuda",
       suffix prefills through K3 on the blocking run; blocking first
       tokens held against the uncached run's by :func:`logit_gate`,
       chunked streams against the uncached chunked run's by
-      :func:`stream_gate`;
+      :func:`stream_gate`, except the first token of an exact-full-prompt
+      hit, held by :func:`logit_gate` against the floor measured between
+      the uncached run's chunks and a recompute of the prompt's last
+      block (:func:`chunked_prefill_logits`);
     * page-out: the same requests on a pool STORM_SHORT blocks short of
       their worst case, ``preemption="page_out"``: spills, every request
       OK, tokens and logprobs equal to the unpressured blocking run's
@@ -1743,8 +1791,10 @@ def durable_path(torch, cfg, cim_ops, paged_ops, *, device="cuda",
                        **roomy)
     ce_cb, c_b = serve("cached_blocking", keep_first_logits=True, **cached)
     full_lg, cached_lg = ce_ub.first_logits, ce_cb.first_logits
-    _, u_c = serve("uncached_chunked", chunked_prefill=True, **roomy)
-    _, c_c = serve("cached_chunked", chunked_prefill=True, **cached)
+    ce_uc, u_c = serve("uncached_chunked", chunked_prefill=True,
+                       keep_first_logits=True, **roomy)
+    ce_cc, c_c = serve("cached_chunked", chunked_prefill=True,
+                       keep_first_logits=True, **cached)
     # Blocking: a prefix hit reads the shared prefix back from the int8
     # pool where a full prefill attends it before quantization, so the
     # first tokens are held by the main phase's logit gate: cached vs full
@@ -1767,7 +1817,44 @@ def durable_path(torch, cfg, cim_ops, paged_ops, *, device="cuda",
     failures += [f"cached_blocking: {f}" for f in fails]
     gates["cached_blocking"]["stream_agreement"] = [
         float((c_b[r.rid].tokens == u_b[r.rid].tokens).mean()) for r in reqs]
-    gates["cached_chunked"], fails = stream_gate(u_c, c_c, "cached_chunked")
+    # Chunked: a hit starts on the same chunk boundary as the uncached
+    # run, except an exact-full-prompt hit, which recomputes its last
+    # 16-token block over the int8 pages.  Its first token is held as
+    # the blocking ones are: its logits against the uncached run's within
+    # 1.5x the floor measured between the uncached run's 64-token chunks
+    # and that recompute of the last block (chunked_prefill_logits), first
+    # tokens equal but for ties inside the floor.  A request whose first
+    # token tied leaves the stream comparison; every other position and
+    # request is held by stream_gate.
+    exact = exact_hits(ce_cc, reqs, 16)
+    tied = set()
+    if not exact:
+        failures.append("cached_chunked: no exact-full-prompt prefix hit")
+    else:
+        recomputed = [chunked_prefill_logits(
+            torch, params, cfg, r.prompt, ce_uc.plan, chunk=chunk,
+            device=device, recompute_tail=r.prompt_len - exact[r.rid])
+            for r in reqs if r.rid in exact]
+        hit_reqs = [r for r in reqs if r.rid in exact]
+        gate, fails = logit_gate(
+            torch, {"kernel": [ce_cc.first_logits[r.rid][:cfg.vocab]
+                               for r in hit_reqs],
+                    "plain": [ce_uc.first_logits[r.rid][:cfg.vocab]
+                              for r in hit_reqs],
+                    "reorder": [lr for _, lr in recomputed]},
+            [c_c[r.rid].tokens for r in hit_reqs],
+            [u_c[r.rid].tokens for r in hit_reqs])
+        failures += [f"cached_chunked exact hits: {f}" for f in fails]
+        gate["rids"] = [r.rid for r in hit_reqs]
+        gate["recomputed_tokens"] = [r.prompt_len - exact[r.rid]
+                                     for r in hit_reqs]
+        gate["exact_hit_first_token_floor"] = max(
+            gate["prefill_logit_noise_floor"])
+        gates["cached_chunked_exact_hits"] = gate
+        tied = {hit_reqs[i].rid for i in gate["first_token_ties"]}
+    gates["cached_chunked"], fails = stream_gate(
+        {rid: r for rid, r in u_c.items() if rid not in tied}, c_c,
+        "cached_chunked")
     failures += fails
     for tag in ("cached_blocking", "cached_chunked"):
         r = runs[tag]
@@ -2276,14 +2363,15 @@ def family_inputs(torch, cfg, shape, seed):
             * cfg.d_model ** -0.5).to(torch.bfloat16)
 
 
-def family_batches(torch, cfg):
+def family_batches(torch, cfg, prompt_lens=FAMILY_MOE_PROMPTS):
     """The Engine.generate runs' batches (one call each: ``{"tokens": [B,
     S]}``, plus ``frames`` for an encoder-decoder, or ``embeds`` with
     optional ``positions`` in their place for M-RoPE) and new tokens per
     call: the state-space runs' prompts, batch and long prompt; one
     4608-token prompt for a sliding window; whisper's 4 and 64 decoder
     tokens over 1500 frames at batch 1 and 4; qwen2-vl's
-    FAMILY_MROPE_PROMPTS; otherwise four prompts of 64-512."""
+    FAMILY_MROPE_PROMPTS; otherwise one prompt of each of
+    ``prompt_lens`` (four of 64-512)."""
     if cfg.arch_type == "encdec":
         b = max(FAMILY_ENCDEC_BATCHES)
         frames = family_inputs(torch, cfg, (b, FAMILY_ENCDEC_FRAMES), 6)
@@ -2318,7 +2406,7 @@ def family_batches(torch, cfg):
         new = FAMILY_NEW["swa"]
     else:
         prompts = [p[None] for p in family_prompts(torch, cfg,
-                                                   FAMILY_MOE_PROMPTS)]
+                                                   prompt_lens)]
         new = FAMILY_NEW["generate"]
     return [{"tokens": p} for p in prompts], new
 
@@ -2356,7 +2444,8 @@ def decode_profile(torch, steps) -> dict:
 
 
 def family_run(torch, name, cfg, path, cim_ops, paged_ops, *,
-               device="cuda", long_prompt=None):
+               device="cuda", long_prompt=None, params=None,
+               prompt_lens=FAMILY_MOE_PROMPTS):
     """One run of the families phase: serve ``cfg`` at its widths, gate it
     and time it.  ``path`` "generate" serves each prompt batch of
     ``family_batches`` by one Engine.generate call (greedy, int8 dense
@@ -2369,7 +2458,9 @@ def family_run(torch, name, cfg, path, cim_ops, paged_ops, *,
     their inputs live (first-token logits move when whisper's frames, or
     qwen2-vl's image positions, change).  A dense or encoder-decoder run
     is cut to the depth that fits the card's free memory
-    (``fit_depth``).  Returns (result, launches, failures)."""
+    (``fit_depth``).  ``params`` (frozen under ``family_plan``) replace
+    the seed-0 weights; ``prompt_lens`` the decoder runs' prompts.
+    Returns (result, launches, failures)."""
     from repro_torch.models import attention as attn_lib
     from repro_torch.models import model as M
     from repro_torch.models import transformer as T
@@ -2383,9 +2474,12 @@ def family_run(torch, name, cfg, path, cim_ops, paged_ops, *,
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     plan = family_plan()
-    cfg, memory = fit_depth(torch, cfg, device)
-    params, init_s = family_params(torch, cfg, plan, device,
-                                   head_first=name in HEAD_FIRST)
+    if params is None:
+        cfg, memory = fit_depth(torch, cfg, device)
+        params, init_s = family_params(torch, cfg, plan, device,
+                                       head_first=name in HEAD_FIRST)
+    else:
+        memory, init_s = None, 0.0
     per_pass = k1_per_pass(cfg)
     enc_k1, cross_k1 = k1_encoder(cfg)
     exact = name in BIT_IDENTICAL
@@ -2519,7 +2613,7 @@ def family_run(torch, name, cfg, path, cim_ops, paged_ops, *,
               "moe": dataclasses.asdict(cfg.moe) if cfg.moe else None,
               "init_s": init_s}
     if path == "generate":
-        batches, new = family_batches(torch, cfg)
+        batches, new = family_batches(torch, cfg, prompt_lens)
         eng = generate(batches, new)
         step_batch = {k: v[:, :1] if k == "positions" else v[:1]
                       for k, v in batches[-1].items()}
@@ -2642,6 +2736,274 @@ def families_path(torch, cim_ops, paged_ops, *, device="cuda", runs=None,
         if device == "cuda":
             torch.cuda.empty_cache()
     return lines, total, failures
+
+
+# ---------------------------------------------------------------------------
+# The train phase: QAT training at full size, stop and resume, deploy
+# ---------------------------------------------------------------------------
+
+# granite-moe-1b-a400m at its published size (~1.385 B parameters: bf16
+# params, f32 master/m/v and bf16 grads are ~22 GB), the JAX package's
+# training default, under the qat plan; eight steps on one fixed batch of
+# 8 x 256 tokens, then two more under the profiler.
+TRAIN_ARCH = "granite-moe-1b-a400m"
+TRAIN_STEPS = 8
+TRAIN_PROFILED_STEPS = 2
+TRAIN_BATCH = (8, 256)
+# Stop and resume at full width and 2 of 24 layers: one full-depth
+# checkpoint is ~19.4 GB of npz, one at 2 layers ~2.9 GB.  Six steps
+# straight, against three and a resume to six.
+RESUME_LAYERS = 2
+RESUME_STEPS = (3, 6)
+# The trained model, frozen under w8a8_kernel, serves one Engine.generate
+# call per prompt, 16 new tokens each.
+DEPLOY_PROMPTS = (64, 128, 64, 128)
+TRAIN_CHILD_MARK = "TRAIN_CHILD_RESULT "
+
+
+def train_config(arch: str = TRAIN_ARCH):
+    """The arch at its published size, ``linear_mode="qat"`` (the
+    attention projections fake-quantized; the expert banks train as bf16
+    einsums and the head exact, as in the JAX package) and an int8 KV
+    cache for the serve step."""
+    from repro_torch import configs
+    return dataclasses.replace(configs.get_config(arch), linear_mode="qat",
+                               kv_cache_dtype="int8")
+
+
+def train_tcfg(**kw):
+    from repro_torch.configs.base import TrainConfig
+    return TrainConfig(lr=1e-3, warmup_steps=2, total_steps=30, remat=True,
+                       **kw)
+
+
+def freeze_by_block(torch, params, plan, device) -> dict:
+    """Trained master params frozen under ``plan`` one block at a time,
+    each block's masters dropped as it is frozen."""
+    from repro_torch.models import model as M
+    blocks = params["stack"].pop("blocks")
+    frozen = M.freeze_params({k: params.pop(k) for k in list(params)
+                              if k != "stack"}, a_scale=0.05, plan=plan)
+    frozen["stack"] = {"blocks": []}
+    while blocks:
+        one = {"stack": {"blocks": [blocks.pop(0)]}}
+        frozen["stack"]["blocks"] += M.freeze_params(
+            one, a_scale=0.05, plan=plan)["stack"]["blocks"]
+        del one
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return frozen
+
+
+def resume_check(torch, cfg, device) -> tuple:
+    """``train_loop.run`` at ``cfg``'s widths twice in a temporary
+    directory: RESUME_STEPS[1] steps straight, and RESUME_STEPS[0] steps
+    then a resume to RESUME_STEPS[1] (a checkpoint every RESUME_STEPS[0]
+    steps).  Params, m, v, step and the resumed steps' losses must be
+    equal bit for bit.  Returns (record, failures)."""
+    import io
+    import shutil
+    import tempfile
+
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_loop
+    stop, total = RESUME_STEPS
+    tcfg = train_tcfg(checkpoint_every=stop)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    failures = []
+    # Two checkpoints a run: bf16 params and f32 master, m and v.
+    ckpt_bytes = cfg.param_count() * (2 + 3 * 4)
+    free = shutil.disk_usage(tmp).free
+    record = {"layers": cfg.n_layers, "d_model": cfg.d_model,
+              "depth_cut": (f"{cfg.n_layers} of "
+                            f"{train_config(cfg.name).n_layers} layers: one "
+                            "full-depth checkpoint is ~19.4 GB of npz"),
+              "steps": total, "stopped_at": stop,
+              "disk_free_gb": free / 1e9,
+              "checkpoint_gb_estimate": ckpt_bytes / 1e9}
+    try:
+        if free < 4.4 * ckpt_bytes:
+            raise MemoryError(f"{free / 1e9:.1f} GB of disk free, the two "
+                              f"runs write ~{4 * ckpt_bytes / 1e9:.1f} GB")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            a = train_loop.run(cfg, tcfg, ckpt_dir=f"{tmp}/a", steps=total,
+                               log_every=10**9, device=device)
+            train_loop.run(cfg, tcfg, ckpt_dir=f"{tmp}/b", steps=stop,
+                           log_every=10**9, device=device)
+            b = train_loop.run(cfg, tcfg, ckpt_dir=f"{tmp}/b", steps=total,
+                               log_every=10**9, device=device)
+        record["runs_s"] = time.perf_counter() - t0
+        step_dir = os.path.join(tmp, "b", f"step_{stop:09d}")
+        record["checkpoint_gb"] = sum(
+            os.path.getsize(os.path.join(step_dir, f))
+            for f in os.listdir(step_dir)) / 1e9
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    same = {name: all(torch.equal(x, y) for x, y in zip(
+                opt_lib.tree_leaves(ta), opt_lib.tree_leaves(tb)))
+            for name, ta, tb in (
+                ("params", a["params"], b["params"]),
+                ("m", a["opt_state"]["m"], b["opt_state"]["m"]),
+                ("v", a["opt_state"]["v"], b["opt_state"]["v"]),
+                ("step", a["opt_state"]["step"], b["opt_state"]["step"]))}
+    losses_a = [h["loss"] for h in a["history"]]
+    losses_b = [h["loss"] for h in b["history"]]
+    same["losses"] = losses_a[stop:] == losses_b
+    record.update({"bit_identical": same, "losses_straight": losses_a,
+                   "losses_resumed": losses_b,
+                   "resumed_steps": [h["step"] for h in b["history"]]})
+    if not all(same.values()):
+        failures.append(f"train resume: not bit-identical to the run never "
+                        f"stopped ({same})")
+    return record, failures
+
+
+def train_path(torch, cim_ops, paged_ops, *, device="cuda", cfg=None,
+               resume_layers: int = RESUME_LAYERS):
+    """The train phase at ``cfg``'s size (default: ``train_config()``).
+
+    1. QAT training: params from ``model.init`` at seed 0 in the config's
+       dtype, AdamW (lr 1e-3, 2 warmup steps, cosine to 30), every block
+       rematerialized, under ``train_loop.deterministic`` and without
+       TF32; TRAIN_STEPS steps on one fixed ``lm_batch`` of TRAIN_BATCH:
+       every loss and grad norm finite and above 0, the last loss below
+       the first (JAX's ``test_reduced_loss_decreases``).  Step ms,
+       trained tokens per second, peak memory, and the device's busy
+       share over TRAIN_PROFILED_STEPS more steps (``torch.profiler``).
+    2. Deploy: the optimizer state freed, the trained params frozen
+       block by block under ``family_plan()`` (w8a8_kernel, routers
+       float) and served through Engine.generate by ``family_run``
+       (DEPLOY_PROMPTS, 16 new, greedy): every request OK, K1 exactly
+       stack passes x ``k1_per_pass``, kernel vs plain prefill logits
+       under ``logit_gate``.
+    3. Stop and resume at ``resume_layers`` layers (``resume_check``).
+
+    Returns (result, K1 launches of the deploy step, failures)."""
+    import statistics
+
+    from repro_torch.data import synthetic
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_loop
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    cfg = cfg or train_config()
+    failures = []
+    if device == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on")
+    tcfg = train_tcfg()
+    t0 = time.perf_counter()
+    params = M.init(cfg, torch.Generator(device=device).manual_seed(0),
+                    device=device)
+    opt = opt_lib.init_opt_state(params)
+    sync()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in opt_lib.tree_leaves(params))
+    b, s = TRAIN_BATCH
+    batch = synthetic.lm_batch(synthetic.TokenStreamConfig(cfg.vocab, s, b),
+                               0, device=device)
+    step = train_loop.make_train_step(cfg, tcfg)
+    losses, gnorms, step_ms = [], [], []
+
+    def one_step():
+        nonlocal params, opt
+        params, opt, m = step(params, opt, batch)
+        return m
+
+    profile = None
+    with train_loop.deterministic():
+        for _ in range(TRAIN_STEPS):
+            sync()
+            t = time.perf_counter()
+            m = one_step()
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        if device == "cuda":
+            def steps():
+                for _ in range(TRAIN_PROFILED_STEPS):
+                    one_step()
+            profile = decode_profile(torch, steps)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" \
+        else None
+    bad = [i for i, (lo, gn) in enumerate(zip(losses, gnorms))
+           if not (math.isfinite(lo) and lo > 0 and math.isfinite(gn)
+                   and gn > 0)]
+    if bad:
+        failures.append(f"train: steps {bad} gave a loss or grad norm that "
+                        "is not finite and above 0")
+    if not losses[-1] < losses[0]:
+        failures.append(f"train: the loss did not fall ({losses[0]} -> "
+                        f"{losses[-1]})")
+    med = statistics.median(step_ms[1:] or step_ms)
+    result = {"phase": "train", "arch": cfg.name, "layers": cfg.n_layers,
+              "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+              "n_kv_heads": cfg.n_kv_heads,
+              "moe": dataclasses.asdict(cfg.moe) if cfg.moe else None,
+              "vocab": cfg.vocab, "padded_vocab": cfg.padded_vocab,
+              "params": n_params, "dtype": cfg.dtype,
+              "linear_mode": cfg.linear_mode, "batch": list(TRAIN_BATCH),
+              "train_config": dataclasses.asdict(tcfg),
+              "init_s": init_s, "losses": losses, "grad_norms": gnorms,
+              "first_loss": losses[0], "ln_vocab": math.log(cfg.vocab),
+              "loss_fell": losses[-1] < losses[0], "step_ms": step_ms,
+              "median_step_ms": med,
+              "tokens_per_s": b * s / (med / 1e3),
+              "peak_mem_gb": peak, "profile": profile,
+              "tf32": torch.backends.cuda.matmul.allow_tf32,
+              "deterministic": True}
+
+    # Deploy the trained model: the optimizer state goes first.
+    del opt, step
+    t = time.perf_counter()
+    frozen = freeze_by_block(torch, params, family_plan(), device)
+    del params
+    serve_cfg = dataclasses.replace(cfg, linear_mode="exact")
+    deploy, launches, fails = family_run(
+        torch, "train-deploy", serve_cfg, "generate", cim_ops, paged_ops,
+        device=device, params=frozen, prompt_lens=DEPLOY_PROMPTS)
+    deploy["freeze_and_serve_s"] = time.perf_counter() - t
+    result["deploy"] = deploy
+    failures += fails
+    del frozen
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    result["resume"], fails = resume_check(
+        torch, dataclasses.replace(cfg, n_layers=resume_layers), device)
+    failures += fails
+    result["launches"] = launches
+    result["ok"] = not failures
+    return result, launches, failures
+
+
+def train_in_child(src: str) -> tuple:
+    """The train phase in a child process with CUBLAS_WORKSPACE_CONFIG set
+    before CUDA starts (deterministic cuBLAS), so the earlier phases run
+    as they did.  The child's stderr passes through; a failed or silent
+    child fails the phase.  Returns (result, launches, failures)."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--train-child",
+         "--src", src], env=env, stdout=subprocess.PIPE, text=True,
+        timeout=900)
+    line = next((ln for ln in reversed(proc.stdout.splitlines())
+                 if ln.startswith(TRAIN_CHILD_MARK)), None)
+    if proc.returncode != 0 or line is None:
+        raise AssertionError(f"the train phase's child process failed (exit "
+                             f"{proc.returncode}); its output ends: "
+                             f"{proc.stdout[-2000:]}")
+    out = json.loads(line[len(TRAIN_CHILD_MARK):])
+    return out["result"], out["launches"], out["failures"]
 
 
 # ---------------------------------------------------------------------------
@@ -2827,6 +3189,8 @@ def main() -> int:
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the tree whose repro_torch package is driven "
                          "(with --k5-only: another tree's op)")
+    ap.add_argument("--train-child", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     # Segments that grow in place: the families phase holds qwen2-vl-72b's
@@ -2848,6 +3212,12 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.train_child:    # the kernels were built by the parent
+        result, launches, failures = train_path(torch, cim_ops, paged_ops)
+        print(TRAIN_CHILD_MARK + json.dumps(
+            {"result": result, "launches": launches, "failures": failures}),
+            flush=True)
+        return 0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -2924,6 +3294,7 @@ def main() -> int:
                 torch, cim_ops, paged_ops,
                 runs=[r for r in FAMILY_RUNS
                       if args.runs is None or r[0] in args.runs.split(",")])),
+            ("train", lambda: train_in_child(args.src)),
             ("vgg8", lambda: vgg8_path(torch, cim_ops, bs_ops, caat_ops)))
         only = set(args.only.split(",")) if args.only else None
         for path, drive in paths:

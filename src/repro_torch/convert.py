@@ -15,7 +15,11 @@ from repro_torch.core import calibration, quant
 
 
 def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
-    """One numpy leaf -> torch tensor (bfloat16 through a 16-bit view)."""
+    """One numpy leaf -> torch tensor (bfloat16 through a 16-bit view); a
+    tensor (a leaf read by ``CheckpointManager.load_flat``) is copied to
+    ``device``."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device, copy=True)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(np.array(a).view(np.int16))
@@ -59,6 +63,28 @@ def params_from_jax(tree, cfg, *, device="cpu") -> dict:
         else:
             out[key] = _convert(node, device)
     return out
+
+
+def train_state_from_jax(flat: dict, cfg, *, device="cpu"
+                         ) -> tuple[dict, dict]:
+    """A JAX training checkpoint's ``{"params", "opt"}`` tree by path
+    (``CheckpointManager.load_flat`` of a step the JAX package's
+    ``train_loop.run`` saved: ``params/stack/blocks/attn/q/w`` stacked
+    ``[L, ...]``, ``opt/{master,m,v}/...`` the same tree in f32,
+    ``opt/step``) -> the port's ``(params, opt_state)``: every tree
+    through :func:`params_from_jax`, ``step`` an int32 0-d tensor."""
+    tree: dict = {}
+    for path, leaf in flat.items():
+        node = tree
+        *parents, name = path.split("/")
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[name] = leaf
+    opt = {k: params_from_jax(tree["opt"][k], cfg, device=device)
+           for k in ("master", "m", "v")}
+    opt["step"] = tensor_from_numpy(tree["opt"]["step"], device).to(
+        torch.int32)
+    return params_from_jax(tree["params"], cfg, device=device), opt
 
 
 def pages_from_jax(pages, *, device="cpu") -> dict:

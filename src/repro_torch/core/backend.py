@@ -17,10 +17,10 @@ patterns (fnmatch) to backends.  Ported backends:
                       bit-plane kernel (``kernels/bitserial_matmul``);
 * ``cim``          -- the behavioural macro simulation (CAAT mismatch, ADC
                       INL, per-row-tile conversions) with the output-based
-                      fine-tune affine.
-
-``qat`` (fake-quant training) is not ported yet: ``get_backend("qat")``
-raises ``NotImplementedError``.
+                      fine-tune affine;
+* ``qat``          -- fake-quant W8A8 training on master params with
+                      straight-through gradients; freezes to the ``w8a8``
+                      layout.
 
 Plans serialize to the same JSON as the JAX package's, so a plan written
 by either package loads in the other.
@@ -40,12 +40,6 @@ from repro_torch.core import quant
 
 Params = dict[str, Any]
 
-# Backends of the JAX package that the port has not reached yet, with the
-# ROADMAP item that carries them.
-_NOT_PORTED = {"qat": "ROADMAP queue 1, item 10: it waits for the "
-                       "training slice"}
-
-
 @dataclasses.dataclass(frozen=True)
 class LinearSpec:
     in_dim: int
@@ -61,7 +55,6 @@ class LinearSpec:
     dynamic_plane_fs: bool = False      # runtime autorange (study only)
 
     def __post_init__(self):
-        _check_ported(self.mode)
         if self.mode not in _REGISTRY:
             raise ValueError(
                 f"unknown mode {self.mode!r}; expected one of "
@@ -81,16 +74,9 @@ def register_backend(name: str) -> Callable[[type], type]:
     return deco
 
 
-def _check_ported(name) -> None:
-    if isinstance(name, str) and name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"backend {name!r} is not ported yet ({_NOT_PORTED[name]})")
-
-
 def get_backend(name: "str | ExecutionBackend") -> "ExecutionBackend":
     if isinstance(name, ExecutionBackend):
         return name
-    _check_ported(name)
     try:
         return _REGISTRY[name]
     except KeyError:
@@ -211,6 +197,35 @@ class ExactBackend(ExecutionBackend):
         if spec is not None and spec.relu:
             y = torch.clamp_min(y, 0)
         return self._finish(y, self.stats(spec), return_stats)
+
+
+@register_backend("qat")
+class QatBackend(ExecutionBackend):
+    """Fake-quant W8A8 with straight-through gradients (training for the
+    macro): a per-tensor activation scale (the absmax of ``x`` unless
+    ``a_scale`` is given) and per-output-channel weight scales from the
+    master weights.  ``freeze`` deploys to the ``w8a8`` layout."""
+
+    deploys_int8 = True
+
+    def freeze(self, params, spec=None, a_scale=1.0, **kw):
+        return _w8a8_freeze(params, a_scale)
+
+    def apply(self, params, x, spec=None, *, a_scale=None, chip=None,
+              return_stats=False, out_scale=None):
+        if isinstance(x, quant.QTensor):
+            x = x.dequant()
+        dtype = spec.dtype if spec is not None else x.dtype
+        relu = spec.relu if spec is not None else False
+        a_s = a_scale if a_scale is not None \
+            else quant.absmax_scale(x.detach())
+        w = params["w"].to(torch.float32)
+        w_s = quant.absmax_scale(w.detach(), axis=0)
+        y = quant.qat_linear(x.to(torch.float32), w, a_s, w_s,
+                             bias=params.get("b"), relu=relu).to(dtype)
+        stats = {"n_conversions": 0.0, "n_passes": 1.0,
+                 "relu_fused": 1.0 if relu else 0.0, "neg_fraction": 0.0}
+        return self._finish(y, stats, return_stats)
 
 
 class _SingleConversionBackend(ExecutionBackend):
@@ -503,7 +518,6 @@ def load_plan(spec: str) -> DeploymentPlan:
     """Parse a plan from a CLI string: a backend name, inline JSON, or a
     path to a JSON file."""
     spec = spec.strip()
-    _check_ported(spec)
     if spec.startswith("{"):
         return DeploymentPlan.from_json(spec)
     if spec in _REGISTRY:

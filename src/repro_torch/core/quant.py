@@ -91,6 +91,26 @@ def w8a8_matmul(a_q, w_q, a_scale, w_scale, bias=None, relu: bool = False,
     return y
 
 
+def fake_quant(x: torch.Tensor, scale) -> torch.Tensor:
+    """Quantize-dequantize with a straight-through gradient: the forward
+    is ``x + (q - x)`` in the reference's order, the gradient the
+    identity."""
+    q = dequantize(quantize(x.detach(), scale), scale)
+    return x + (q - x.detach())
+
+
+def qat_linear(x: torch.Tensor, w: torch.Tensor, a_scale, w_scale,
+               bias=None, relu: bool = False) -> torch.Tensor:
+    """The training-time view of a deployed W8A8 linear: both operands
+    fake-quantized, the product in f32, then the bias, then ReLU."""
+    y = fake_quant(x, a_scale) @ fake_quant(w, w_scale)
+    if bias is not None:
+        y = y + bias
+    if relu:
+        y = torch.clamp_min(y, 0.0)
+    return y
+
+
 def calibrate_plane_full_scale(a_q: torch.Tensor, w_q: torch.Tensor,
                                nbits: int = 8, margin: float = 1.1
                                ) -> torch.Tensor:

@@ -1,16 +1,60 @@
-"""Synthetic CIFAR-like images for the VGG-8 experiments (port of
-``synthetic_cifar`` in ``repro/data/synthetic.py``).
+"""Deterministic synthetic data (port of ``repro/data/synthetic.py``).
 
-Per-class frequency/orientation patterns plus noise; CIFAR itself is not
-available offline, so Fig. 10 is reproduced mechanistically on this set.
-The noise is drawn from an explicit ``torch.Generator``: the same
-distribution as the JAX package, not the same images.
+* Token streams for LM training, seeded per step: resuming from step N
+  regenerates exactly the batches N, N+1, ... that a run never stopped
+  would have seen (the data half of resume).  A Markov-ish stream of
+  state-conditioned token ranges plus geometric noise, drawn through
+  ``serve/prng.py``, so a batch equals the JAX package's at the same seed
+  and step (up to ``prng.geometric``'s ``log`` rounding).
+* Synthetic CIFAR-like images for the VGG-8 experiments: per-class
+  frequency/orientation patterns plus noise; CIFAR itself is not
+  available offline, so Fig. 10 is reproduced mechanistically on this
+  set.  The noise is drawn from an explicit ``torch.Generator``: the
+  same distribution as the JAX package, not the same images.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
+
+from repro_torch.serve import prng
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenStreamConfig:
+    vocab: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    markov_states: int = 64
+
+
+def lm_batch(cfg: TokenStreamConfig, step: int, *, device="cpu") -> dict:
+    """The batch of ``step``, deterministic in (seed, step): int32
+    ``tokens`` and ``labels`` [global_batch, seq_len] (labels are the
+    next token, -1 at the last position), drawn on the host and placed
+    on ``device``."""
+    key = prng.fold_in(prng.PRNGKey(cfg.seed), step)
+    k1, k2 = prng.split(key)
+    b, s, v = cfg.global_batch, cfg.seq_len, cfg.vocab
+    states = prng.randint(k1, (b, s), 0, cfg.markov_states)
+    span = max(v // cfg.markov_states, 1)
+    offs = prng.geometric(k2, 0.2, (b, s)).clamp(1, span) - 1
+    tokens = (states * span + offs).clamp(0, v - 1).to(torch.int32)
+    labels = torch.cat([tokens[:, 1:],
+                        torch.full((b, 1), -1, dtype=torch.int32)], dim=1)
+    return {"tokens": tokens.to(device), "labels": labels.to(device)}
+
+
+def host_shard(batch: dict, n_shards: int, shard_idx: int) -> dict:
+    """This host's slice of the global batch (rows ``shard_idx * per`` to
+    ``(shard_idx + 1) * per``)."""
+    def slc(x):
+        per = x.shape[0] // n_shards
+        return x[shard_idx * per:(shard_idx + 1) * per]
+    return {k: slc(v) for k, v in batch.items()}
 
 
 def synthetic_cifar(gen: torch.Generator, n: int, n_classes: int = 10,

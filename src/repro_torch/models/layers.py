@@ -9,8 +9,10 @@ frozen (int8) params are dicts with 'w_q'.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
+import numpy as np
 import torch
 
 from repro_torch.core import backend as backend_lib
@@ -80,11 +82,18 @@ def layernorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
             + p["bias"]).to(dt)
 
 
+@functools.cache
 def _rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
-    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
-                        device=device) / head_dim
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), exps)
+    """``1 / theta ** (arange(0, head_dim, 2) / head_dim)`` on ``device``,
+    bit for bit as the JAX package computes it: the exponents in f32, the
+    power taken in float64 on the host and rounded once to f32 (XLA's f32
+    power is correctly rounded there; torch's f32 ``pow`` is one ulp off
+    on some inputs), then the f32 reciprocal.  Made once per (head_dim,
+    theta, device)."""
+    exps = np.arange(0, head_dim, 2, dtype=np.float32) / np.float32(head_dim)
+    power = (np.float64(np.float32(theta)) ** exps.astype(np.float64)
+             ).astype(np.float32)
+    return torch.from_numpy(np.float32(1.0) / power).to(device)
 
 
 def rope_angles(positions: torch.Tensor, head_dim: int, theta: float,

@@ -5,7 +5,8 @@ encoder-decoder (whisper) and M-RoPE (qwen2-vl)).
 
   init(cfg, generator, device)                 -> params
   freeze_params(params, a_scale, plan)         -> deployed params
-  forward(params, batch, cfg)                  -> (hidden, aux)
+  forward(params, batch, cfg, train=...)       -> (hidden, aux)
+  loss_fn(params, batch, cfg)                  -> (loss, metrics) [chunked CE]
   logits_fn(params, h, cfg, mode)              -> logits (padded vocab masked)
   prefill(params, batch, cfg, max_len)         -> (last logits, dense caches)
   prefill_paged(params, batch, cfg, ...)       -> (last logits, pages)
@@ -18,6 +19,7 @@ Batch keys (which are present depends on the arch's frontend):
             upstream; they replace the token embedding)
   frames    [B, S_enc, d] (audio_stub: the encoder's frame embeddings)
   positions [B, S] or [3, B, S] (M-RoPE t/h/w) integer ids, optional
+  labels    [B, S] integer next-token ids, -1 where no loss is taken
   length    the true prompt length of a right-padded ``tokens`` batch
 """
 from __future__ import annotations
@@ -126,24 +128,30 @@ def _embed_inputs(params, batch, cfg):
     return layers.embed(params["embed"], batch["tokens"])
 
 
-def _encoder_out(params, batch, cfg, mode=None):
+def _encoder_out(params, batch, cfg, remat=False, mode=None):
     """The encoder over ``batch["frames"]``, final-normed."""
     if "frames" not in batch:
         raise ValueError("an encdec model needs batch['frames'], the "
                          "encoder's frame embeddings [B, S_enc, d_model]")
     h = transformer.apply_encoder(params["stack"],
                                   batch["frames"].to(_dtype(cfg)), cfg,
-                                  mode=mode)
+                                  remat=remat, mode=mode)
     return layers.rmsnorm(params["enc_final_norm"], h, cfg.norm_eps)
 
 
-def forward(params, batch, cfg, *, mode=None):
-    """Full-sequence forward to final hidden states.  Returns (h, aux)."""
+def forward(params, batch, cfg, *, train: bool = False,
+            remat: bool | None = None, remat_policy: str = "nothing",
+            mode=None):
+    """Full-sequence forward to final hidden states.  Returns (h, aux).
+    ``remat`` (default: ``train``) checkpoints every block under
+    ``remat_policy`` (``"nothing"`` or ``"dots"``)."""
+    remat = train if remat is None else remat
     x = _embed_inputs(params, batch, cfg)
-    enc_out = (_encoder_out(params, batch, cfg, mode=mode)
+    enc_out = (_encoder_out(params, batch, cfg, remat=remat, mode=mode)
                if cfg.arch_type == "encdec" else None)
     h, aux = transformer.apply_stack(params["stack"], x, cfg,
                                      positions=batch.get("positions"),
+                                     remat=remat, remat_policy=remat_policy,
                                      mode=mode, enc_out=enc_out)
     return layers.rmsnorm(params["final_norm"], h, cfg.norm_eps), aux
 
@@ -162,6 +170,47 @@ def logits_fn(params, h, cfg, mode=None):
             >= cfg.vocab
         logits = torch.where(pad, -1e30, logits)
     return logits
+
+
+def loss_fn(params, batch, cfg, *, loss_chunk: int = 256,
+            remat_policy: str = "nothing", mode=None,
+            aux_weight: float = 0.01):
+    """Chunked-softmax LM loss over the training forward (remat on): the
+    f32 logits are made ``[B, loss_chunk, V]`` at a time, never ``[B, S,
+    V]``, the padding columns masked to -1e30, positions with ``labels <
+    0`` left out.  Returns ``(ce + aux_weight * aux, {"ce", "aux",
+    "tokens"})``; the sequence must be a multiple of the chunk."""
+    h, aux = forward(params, batch, cfg, train=True,
+                     remat_policy=remat_policy, mode=mode)
+    labels = batch["labels"].long()
+    b, s = labels.shape
+    chunk = min(loss_chunk, s)
+    if s % chunk:
+        raise ValueError(f"loss_fn needs the sequence ({s}) to be a "
+                         f"multiple of loss_chunk ({chunk})")
+    head = _head_weight(params, cfg)
+    dev = h.device
+    pad = (torch.arange(cfg.padded_vocab, device=dev) >= cfg.vocab
+           if cfg.padded_vocab != cfg.vocab else None)
+    tot = torch.zeros((), dtype=torch.float32, device=dev)
+    cnt = torch.zeros((), dtype=torch.float32, device=dev)
+    for c0 in range(0, s, chunk):
+        lc = labels[:, c0:c0 + chunk]
+        logits = layers.dense(head, h[:, c0:c0 + chunk], "exact",
+                              dtype=torch.float32, path="lm_head")
+        if pad is not None:
+            logits = torch.where(pad, -1e30, logits)
+        logz = torch.logsumexp(logits, dim=-1)
+        # A negative label indexes from the end, as JAX's take_along_axis
+        # does; its term is multiplied by 0.
+        idx = torch.where(lc < 0, lc + cfg.padded_vocab, lc)
+        gold = torch.gather(logits, -1, idx[..., None])[..., 0]
+        valid = (lc >= 0).to(torch.float32)
+        tot = tot + ((logz - gold) * valid).sum()
+        cnt = cnt + valid.sum()
+    ce = tot / torch.clamp_min(cnt, 1.0)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=dev)
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux, "tokens": cnt}
 
 
 def prefill(params, batch, cfg, *, max_len: int, mode=None):

@@ -201,40 +201,92 @@ def recurrent_stack(params, x, cfg, caches: dict, *, mode=None,
     return x
 
 
-def apply_stack(params, x, cfg, *, positions=None, mode=None,
-                enc_out=None):
+_REMAT_POLICIES = ("nothing", "dots")
+
+
+def _dots_saved():
+    """Selective checkpoint contexts that keep the outputs of the
+    matmuls without a batch dimension (``aten.mm``/``addmm``) and
+    recompute everything else: JAX's
+    ``dots_with_no_batch_dims_saveable``."""
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+    dots = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in dots
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return create_selective_checkpoint_contexts(policy)
+
+
+def _maybe_remat(fn, remat: bool, policy: str = "nothing"):
+    """``fn`` rematerialized in the backward pass when ``remat``: one
+    ``torch.utils.checkpoint`` region per call.  ``"nothing"`` keeps only
+    the call's inputs, ``"dots"`` also the plain matmuls' outputs.  Remat
+    changes memory, never numbers."""
+    if policy not in _REMAT_POLICIES:
+        raise ValueError(f"remat_policy must be one of {_REMAT_POLICIES}, "
+                         f"got {policy!r}")
+    if not remat:
+        return fn
+    from torch.utils.checkpoint import checkpoint
+    kw = {"context_fn": _dots_saved} if policy == "dots" else {}
+
+    def rematted(*args):
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return rematted
+
+
+def apply_stack(params, x, cfg, *, positions=None, remat=False,
+                remat_policy="nothing", mode=None, enc_out=None):
     """Full-sequence forward (no caches).  Returns (hidden, aux_loss): the
     MoE layers' summed Switch loss, 0 for the other stacks.  An encdec
     stack runs its decoder, cross-attending ``enc_out``
-    (:func:`apply_encoder`)."""
+    (:func:`apply_encoder`).  ``remat`` checkpoints every block (a
+    hybrid's shared attention block and each SSM block on its own, as
+    the JAX package remats inside the group)."""
     at = _arch(cfg)
+
+    def remat_fn(fn):
+        return _maybe_remat(fn, remat, remat_policy)
+
     if at in ("ssm", "hybrid"):
         interval = cfg.hybrid_attn_interval
+        shared = remat_fn(lambda blk, h: dense_block(
+            blk, h, cfg, positions=positions, mode=mode)[0])
+        ssm = remat_fn(lambda blk, h: ssm_block(blk, h, cfg, mode=mode)[0])
         for i, blk in enumerate(params["blocks"]):
             if at == "hybrid" and i % interval == 0:
-                x, _ = dense_block(params["shared_attn"], x, cfg,
-                                   positions=positions, mode=mode)
-            x, _ = ssm_block(blk, x, cfg, mode=mode)
+                x = shared(params["shared_attn"], x)
+            x = ssm(blk, x)
         return x, 0.0
     if at == "encdec":
         if enc_out is None:
             raise ValueError("an encdec stack needs the encoder output "
                              "(enc_out)")
+        dec = remat_fn(lambda blk, h: decoder_block(
+            blk, h, cfg, xattn_kv=enc_out, positions=positions, mode=mode))
         for blk in params["decoder"]:
-            x = decoder_block(blk, x, cfg, xattn_kv=enc_out,
-                              positions=positions, mode=mode)
+            x = dec(blk, x)
         return x, 0.0
+    block = remat_fn(lambda blk, h: _block(blk, h, cfg, positions=positions,
+                                           mode=mode))
     aux = 0.0
     for blk in params["blocks"]:
-        x, a = _block(blk, x, cfg, positions=positions, mode=mode)
+        x, a = block(blk, x)
         aux = aux + a
     return x, aux
 
 
-def apply_encoder(params, frames, cfg, *, mode=None):
-    """Bidirectional encoder over (stub) frame embeddings [B, S_enc, d]."""
+def apply_encoder(params, frames, cfg, *, remat=False, mode=None):
+    """Bidirectional encoder over (stub) frame embeddings [B, S_enc, d];
+    ``remat`` checkpoints every block."""
+    enc = _maybe_remat(lambda blk, h: dense_block(
+        blk, h, cfg, causal=False, mode=mode)[0], remat)
     for blk in params["encoder"]:
-        frames, _ = dense_block(blk, frames, cfg, causal=False, mode=mode)
+        frames = enc(blk, frames)
     return frames
 
 

@@ -20,7 +20,9 @@ the same key:
 The integer draws (keys, bits, ``uniform``, ``randint``) are exact.
 ``gumbel`` goes through ``log``, which may round differently from XLA's
 by an ulp, so a ``categorical`` draw equals JAX's unless two classes tie
-within that rounding.
+within that rounding.  ``geometric`` (the training data's offsets) goes
+through ``log`` too: a draw equals JAX's unless ``log(u) / log1p(-p)``
+lies within that rounding of an integer.
 """
 from __future__ import annotations
 
@@ -155,3 +157,18 @@ def randint(key: torch.Tensor, shape, minval: int, maxval: int
     offset = (((higher % span) * mult) & MASK)
     offset = ((offset + lower % span) & MASK) % span
     return (offset + minval).to(torch.int32)
+
+
+INT32_MAX = 2**31 - 1
+
+
+def geometric(key: torch.Tensor, p: float, shape) -> torch.Tensor:
+    """``jax.random.geometric`` to int32 for one key: ``floor(log(u) /
+    log1p(-p)) + 1`` over ``uniform`` in f32, ``log1p(-p)`` rounded to f32
+    on the host.  The cast saturates as XLA's does (``u = 0`` gives
+    ``+inf``, so ``INT32_MAX``)."""
+    log_q = float(np.float32(np.log1p(-np.float64(np.float32(p)))))
+    g = torch.floor(torch.log(uniform(key, shape)) / log_q) + 1.0
+    big = g >= 2.0**31
+    return torch.where(big, INT32_MAX,
+                       torch.where(big, 0.0, g).to(torch.int32))

@@ -163,10 +163,10 @@ class ContinuousEngine:
     streams are identical to the uncached engine's.
 
     ``keep_first_logits=True`` keeps, in ``first_logits`` ({rid: [V]
-    f32}), the logits each blocking admission (full or suffix prefill)
-    samples a request's first token from, the latest admission's where a
-    request is admitted again: what a caller compares cached and full
-    prefill by."""
+    f32}), the logits a request's first token is sampled from (a
+    blocking admission's full or suffix prefill, a chunked prefill's
+    final chunk), the latest admission's where a request is admitted
+    again: what a caller compares cached and full prefill by."""
 
     def __init__(self, params, cfg, *, plan=None, mode=None,
                  max_batch: int = 8, kv_blocks: int = 64,
@@ -238,6 +238,7 @@ class ContinuousEngine:
         self.debug_invariants = debug_invariants
         self.first_logits: dict[int, torch.Tensor] | None = (
             {} if keep_first_logits else None)
+        self._chunk_logits = None   # the last prefill chunk's, if kept
         self._int8_pool = getattr(cfg, "kv_cache_dtype", "bf16") == "int8"
         if prefill_chunk is None:
             kvh = cfg.n_kv_heads
@@ -417,6 +418,8 @@ class ContinuousEngine:
                 params, pf_tok, cfg, pages=pages, block_tables=pf_tables,
                 pos=pf_pos, n_tok=pf_cnt, write_mask=pf_on & ~pf_nw,
                 has_past=has_past, mode=plan)
+            if self.first_logits is not None:
+                self._chunk_logits = logits0
             logits0 = torch.where(poison[pf_rows][:, None], torch.nan,
                                   logits0)
             ok0 = torch.isfinite(logits0.to(torch.float32)).all(dim=-1)
@@ -1306,7 +1309,7 @@ class ContinuousEngine:
                       "occupancy": stats["occupancy"],
                       "fragmentation": stats["fragmentation"]})
             n_out = n_out_new
-            for row, sr, cnt, fin in pf_rows:
+            for i, (row, sr, cnt, fin) in enumerate(pf_rows):
                 sr.pf_written += cnt
                 sr.ctx_len = sr.pf_written
                 sr.cow_skip = False        # the write-skip covers one chunk
@@ -1318,6 +1321,9 @@ class ContinuousEngine:
                     # landed cleanly (a NaN final chunk must not publish
                     # pages future sharers would read).
                     self._register_prefix(sr, sr.pf_written)
+                    if self.first_logits is not None:
+                        self._keep_first_logits(
+                            sr.rid, self._chunk_logits[i:i + 1])
 
             for row, sr in list(sched.running.items()):
                 if chunked and sr.state is State.PREFILL \

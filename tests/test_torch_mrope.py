@@ -81,22 +81,28 @@ def _embeds(b, s, seed):
 
 
 def test_rope_angles_sections_bit_exact():
-    """M-RoPE angles: each section's frequency bands from its own axis of
-    the [3, B, S] positions, bit for bit at the reduced head_dim; the
-    asserts become ValueErrors.  At qwen2-vl's head_dim 128 and theta 1e6
-    one of the 64 frequencies is one f32 ulp off XLA's (torch's f32 pow;
-    ROADMAP queue 3), so its angles agree within two ulp (the frequency's
-    one, then the product's rounding)."""
+    """RoPE frequencies and M-RoPE angles bit for bit against the JAX
+    package at every config's (head_dim, rope_theta), head_dim 128 at
+    theta 1e6 included, and at the reduced head_dim: each section's
+    frequency bands from its own axis of the [3, B, S] positions.  The
+    asserts become ValueErrors."""
     pos = _positions(2, 5, 3, 4, 6)
+    shapes = {(c.resolved_head_dim, c.rope_theta)
+              for c in map(tcfg.get_config, tcfg.ARCH_IDS)}
+    for hd, theta in sorted(shapes | {(16, 1e6)}):
+        np.testing.assert_array_equal(
+            TL._rope_freqs(hd, theta, torch.device("cpu")).numpy(),
+            np.asarray(JL._rope_freqs(hd, theta)), err_msg=f"hd={hd}")
+        want = np.asarray(JL.rope_angles(jnp.asarray(pos[0]), hd, theta))
+        got = TL.rope_angles(torch.as_tensor(pos[0]).long(), hd,
+                             theta).numpy()
+        np.testing.assert_array_equal(got, want, err_msg=f"hd={hd}")
     for hd, sections in ((16, (4, 2, 2)), (128, (16, 24, 24))):
         want = np.asarray(JL.rope_angles(jnp.asarray(pos), hd, 1e6,
                                          sections))
         got = TL.rope_angles(torch.as_tensor(pos).long(), hd, 1e6,
                              sections).numpy()
-        if hd == 16:
-            np.testing.assert_array_equal(got, want)
-        else:
-            np.testing.assert_array_max_ulp(got, want, maxulp=2)
+        np.testing.assert_array_equal(got, want)
     with pytest.raises(ValueError, match="positions"):
         TL.rope_angles(torch.as_tensor(pos[0]).long(), 16, 1e6, (4, 2, 2))
     with pytest.raises(ValueError, match="sum to head_dim/2"):

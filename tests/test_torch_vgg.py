@@ -190,12 +190,14 @@ def test_synthetic_cifar():
     assert int(labels.min()) >= 0 and int(labels.max()) < 10
 
 
-def test_qat_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tb.get_backend("qat")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tb.LinearSpec(4, 4, mode="qat")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tb.load_plan("qat")
+def test_qat_backend_is_available():
+    """The ``qat`` backend is registered: by name, in a LinearSpec and as
+    a plan; an unknown name still raises."""
+    assert tb.get_backend("qat").deploys_int8
+    assert not tb.get_backend("qat").frozen
+    assert tb.LinearSpec(4, 4, mode="qat").mode == "qat"
+    assert tb.load_plan("qat").default == "qat"
+    assert tb.DeploymentPlan(default="qat").validate().backend_for(
+        "stack/blocks/attn/q") == "qat"
     with pytest.raises(KeyError):
         tb.get_backend("no_such_backend")
