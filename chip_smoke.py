@@ -67,7 +67,23 @@ Phases (each prints one JSON line; any failure exits non-zero):
                resumed (streams equal the uninterrupted run's; snapshot
                bytes, save and restore seconds).  K3 is also held against
                its plain version at the suffix-prefill shapes in phase 3.
-8. families -- the rest of the decoder-only family at published widths
+8. distributed -- the mesh paths at full width on an NCCL process group
+               of one rank in a (1, 1) ("data", "model") DeviceMesh: the
+               serving phases' qwen3-8b (36 layers, w8a8_kernel) through
+               launch.serve.static_generate, 8 prompts of 32 tokens from
+               PRNGKey(1), 16 new, greedy, without a mesh and with the
+               params laid out as DTensors by resolve_param_specs (tokens
+               equal, prefill logits bit-identical, K1 launch counts
+               equal; tok/s, decode step, distribute and localize
+               seconds); seq_parallel_decode_attention at qwen3-8b's
+               decode shape (B 8, H 32, KVH 8, D 128, S 4096, 3001 valid)
+               within 1e-5 of attend_decode; compressed_psum on a 16M
+               gradient equal to its plain codec; pipeline_forward with
+               one stage equal to the stage; K1 bit-exact and timed at
+               the column shards of qwen3-8b's q, k/v, gate/up and head at
+               a model axis of 16 (N 256, 64, 768, 9504; M 8 and 512)
+               beside its plain version, bound and torch._int_mm.
+9. families -- the rest of the decoder-only family at published widths
                (depth cut where noted on each run's line), random weights
                from seed 0 frozen under w8a8_kernel (routers float),
                greedy: moonshot-v1-16b-a3b (8 of 48 layers) and
@@ -106,7 +122,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
                runs' first-token logits move with whisper's frames and
                with qwen2-vl's image positions; tokens per wall second,
                decode-step ms, peak memory.
-9. train    -- in a child process with CUBLAS_WORKSPACE_CONFIG set (so
+10. train   -- in a child process with CUBLAS_WORKSPACE_CONFIG set (so
                cuBLAS is deterministic there and as before elsewhere):
                granite-moe-1b-a400m at its published size (24 layers,
                ~1.385 B parameters, bf16) trained under the qat plan with
@@ -123,15 +139,18 @@ Phases (each prints one JSON line; any failure exits non-zero):
                reordering floor.  Then train_loop.run at full width and
                2 of 24 layers, 6 steps straight against 3 and a resume
                to 6 in a temporary directory: params, m, v and losses
-               bit-identical.
-10. vgg8    -- the paper's VGG-8 deployment path (repro_torch.launch.fig10)
+               bit-identical.  Then 2 qat steps at 2 layers without a
+               mesh and on a (1, 1) mesh of an NCCL group of one rank
+               (params, master, m, v as DTensors): params, m, v and
+               losses bit-identical.
+11. vgg8    -- the paper's VGG-8 deployment path (repro_torch.launch.fig10)
                at its published widths with random weights from a seed:
                w8a8_kernel (with and without residency) and
                bitserial_kernel logits bit-identical to their plain plans,
                the cim plan with 8 sampled chips, calibrated full scales
                and per-channel fine-tunes, and the CAAT macro op on every
                cim layer's int8 inputs against the behavioural simulation.
-11. the ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
+12. the ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 ``--skip-main`` stops after the kernel phase (a quick kernel check);
@@ -2981,6 +3000,10 @@ def train_path(torch, cim_ops, paged_ops, *, device="cuda", cfg=None,
     result["resume"], fails = resume_check(
         torch, dataclasses.replace(cfg, n_layers=resume_layers), device)
     failures += fails
+    result["mesh_train"], fails = mesh_train_check(
+        torch, device, None if device == "cuda" else dataclasses.replace(
+            cfg, n_layers=MESH_TRAIN_LAYERS), TRAIN_BATCH)
+    failures += fails
     result["launches"] = launches
     result["ok"] = not failures
     return result, launches, failures
@@ -3004,6 +3027,289 @@ def train_in_child(src: str) -> tuple:
                              f"{proc.stdout[-2000:]}")
     out = json.loads(line[len(TRAIN_CHILD_MARK):])
     return out["result"], out["launches"], out["failures"]
+
+
+# ---------------------------------------------------------------------------
+# The distributed phase: the mesh paths on an NCCL group of one rank
+# ---------------------------------------------------------------------------
+
+DIST_MESH = (1, 1)                 # ("data", "model") on the one card
+DIST_BATCH, DIST_PROMPT, DIST_NEW = 8, 32, 16
+# qwen3-8b's decode attention: B, H, KVH, D, S, valid positions.
+DIST_ATTN = (8, 32, 8, 128, 4096, 3001)
+DIST_PSUM_ELEMS = 16 * 2**20
+# qwen3-8b's column-parallel linears at the production mesh's model = 16:
+# (K, N) of q, k/v, gate/up and the head (padded vocab 152064 / 16).
+K1_SHARD_SHAPES = ((4096, 256), (4096, 64), (4096, 768), (4096, 9504))
+MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS = 2, 2
+
+
+@contextlib.contextmanager
+def process_group(torch, device):
+    """A process group of one rank (nccl on the card, gloo on the CPU)
+    over a FileStore in a temporary directory, destroyed on exit."""
+    import tempfile
+
+    from repro_torch.launch import mesh as mesh_lib
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh_lib.init_group(device, rank=0, world_size=1,
+                            init_method=f"file://{tmp}/store")
+        try:
+            yield mesh_lib.make_mesh(DIST_MESH, device=device)
+        finally:
+            torch.distributed.destroy_process_group()
+
+
+def check_k1_shards(torch, timer, ops, gen) -> list:
+    """K1 at the column shards of qwen3-8b's linears on a model axis of
+    16 (K1_SHARD_SHAPES) at M = 8 and 512: bit-exact against its plain
+    version, timed beside its bound and the torch._int_mm yardstick."""
+    dev = "cuda"
+    a_scale = torch.tensor(0.05, device=dev)
+    one = torch.tensor(1.0, device=dev)
+    rows = []
+    for k, n in K1_SHARD_SHAPES:
+        w = rand_i8(torch, (k, n), gen, -127)
+        w_scale = torch.rand(n, generator=gen, device=dev) * 1e-3 + 1e-4
+        bias = torch.zeros(n, device=dev)
+        for m in (8, 512):
+            a = torch.randn(m, k, generator=gen, device=dev)
+            args = (a, w, a_scale, w_scale, bias, one)
+            got = ops.cim_matmul_kernel(*args)
+            want = ops.cim_matmul_plain(*args)
+            if not torch.equal(got, want):
+                raise AssertionError(f"K1 not bit-exact at the shard shape "
+                                     f"M={m} K={k} N={n}")
+            rows.append({"M": m, "K": k, "N": n, "max_abs_err": 0.0,
+                         "ms": timer.ms(lambda: ops.cim_matmul_kernel(
+                             *args)),
+                         **k1_times(torch, timer, ops, args)})
+    return rows
+
+
+def distributed_path(torch, cfg, cim_ops, paged_ops, *, device="cuda",
+                     cache=None):
+    """The mesh paths at full width on a process group of one rank, in a
+    ``DIST_MESH`` ("data", "model") DeviceMesh:
+
+    1. serving: the serving phases' model (``cfg``, frozen under
+       w8a8_kernel) through ``launch.serve.static_generate``, DIST_BATCH
+       prompts of DIST_PROMPT tokens from PRNGKey(1), DIST_NEW new,
+       greedy, without a mesh and then with the params laid out as
+       DTensors by ``resolve_param_specs``: tokens equal, prefill logits
+       bit-identical, K1 launch counts equal; wall times of the prefill
+       alone and of the whole call give tok/s and the decode step;
+    2. the collectives on the card's tensors: seq_parallel_decode_attention
+       at qwen3-8b's decode shape against attend_decode (1e-5),
+       compressed_psum on a DIST_PSUM_ELEMS gradient against its plain
+       codec (codes and error equal), pipeline_forward with one stage
+       equal to the stage;
+    3. (on the card) K1 at the production mesh's shard shapes
+       (``check_k1_shards``).
+
+    Returns (result, K1 launches of the mesh serve, failures)."""
+    from repro_torch.distributed import collectives, pipeline, sharding
+    from repro_torch.distributed import spmd
+    from repro_torch.launch.serve import static_generate
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models import model as M
+    from repro_torch.serve import prng
+    from repro_torch.train import compression
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    failures = []
+    params, plan, init_s = frozen_params(torch, cfg, device, cache)
+    prompts = prng.randint(prng.PRNGKey(1, device=device),
+                           (DIST_BATCH, DIST_PROMPT), 0, cfg.vocab)
+    max_len = DIST_PROMPT + DIST_NEW + 8
+    result = {"phase": "distributed", "arch": cfg.name,
+              "layers": cfg.n_layers, "mesh": dict(zip(("data", "model"),
+                                                        DIST_MESH)),
+              "batch": DIST_BATCH, "prompt": DIST_PROMPT, "new": DIST_NEW,
+              "plan": "w8a8_kernel"}
+    with process_group(torch, device) as mesh:
+        result["backend"] = torch.distributed.get_backend()
+        result["world_size"] = torch.distributed.get_world_size()
+
+        def serve(p, new, m=None):
+            sync()
+            t0 = time.perf_counter()
+            out = static_generate(p, cfg, prompts, new, max_len=max_len,
+                                  plan=plan, mesh=m)
+            sync()
+            return out, time.perf_counter() - t0
+
+        serve(params, 2)                        # warm-up, not counted
+        _, pf_plain = serve(params, 1)
+        reset_launches(cim_ops, paged_ops)
+        (tok_a, lg_a), wall_a = serve(params, DIST_NEW)
+        plain_counts = read_launches(cim_ops, paged_ops)
+        t0 = time.perf_counter()
+        shardings = sharding.resolve_param_specs(
+            M.freeze_pspec(M.pspec(cfg), plan=plan), mesh)
+        dparams = sharding.distribute(params, shardings)
+        sync()
+        result["distribute_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        spmd.localize(dparams)
+        sync()
+        result["localize_s"] = time.perf_counter() - t0
+        _, pf_mesh = serve(dparams, 1, mesh)
+        reset_launches(cim_ops, paged_ops)
+        (tok_b, lg_b), wall_b = serve(dparams, DIST_NEW, mesh)
+        launches = read_launches(cim_ops, paged_ops)
+        del dparams
+        total = DIST_BATCH * DIST_NEW
+        result["serve"] = {
+            "tokens_equal": bool(torch.equal(tok_a, tok_b)),
+            "prefill_logits_bit_identical": bool(torch.equal(lg_a, lg_b)),
+            "k1_launches_plain": plain_counts["cim_matmul"],
+            "k1_launches_mesh": launches["cim_matmul"],
+            "wall_s": {"no_mesh": wall_a, "mesh": wall_b},
+            "tok_per_s": {"no_mesh": total / wall_a, "mesh": total / wall_b},
+            "prefill_s": {"no_mesh": pf_plain, "mesh": pf_mesh},
+            "decode_step_ms": {
+                "no_mesh": (wall_a - pf_plain) / (DIST_NEW - 1) * 1e3,
+                "mesh": (wall_b - pf_mesh) / (DIST_NEW - 1) * 1e3}}
+        sv = result["serve"]
+        if not sv["tokens_equal"]:
+            failures.append("distributed: mesh serve tokens differ from the "
+                            "run without a mesh")
+        if not sv["prefill_logits_bit_identical"]:
+            diff = (lg_a - lg_b).abs().max().item()
+            failures.append(f"distributed: mesh prefill logits differ (max "
+                            f"{diff})")
+        if launches["cim_matmul"] != plain_counts["cim_matmul"] or (
+                device == "cuda" and launches["cim_matmul"] == 0):
+            failures.append(f"distributed: K1 launched {launches} on the "
+                            f"mesh, {plain_counts} without")
+
+        # The collectives on the card's tensors.
+        gen = torch.Generator(device=device).manual_seed(99)
+        b, h, kvh, d, s, n_valid = DIST_ATTN
+        q = torch.randn(b, 1, h, d, generator=gen, device=device)
+        k = torch.randn(b, s, kvh, d, generator=gen, device=device)
+        v = torch.randn(b, s, kvh, d, generator=gen, device=device)
+        sync()
+        t0 = time.perf_counter()
+        got = collectives.seq_parallel_decode_attention(mesh, q, k, v,
+                                                        n_valid)
+        sync()
+        attn_s = time.perf_counter() - t0
+        want = attn_lib.attend_decode(
+            q, k, v, (torch.arange(s, device=device) < n_valid)[None])
+        err = (got - want).abs().max().item()
+        g = torch.randn(DIST_PSUM_ELEMS, generator=gen, device=device)
+        err0 = torch.zeros_like(g)
+        sync()
+        t0 = time.perf_counter()
+        mean, new_err = compression.compressed_psum(g, err0, "data",
+                                                    mesh=mesh)
+        sync()
+        psum_s = time.perf_counter() - t0
+        codes, scale, plain_err = compression.compress(g, err0)
+        w = torch.randn(1, 256, 256, generator=gen, device=device) / 16
+        x = torch.randn(8, 4, 256, generator=gen, device=device)
+        pipe = pipeline.pipeline_forward(
+            mesh, lambda wt, xt: torch.tanh(xt @ wt), w, x, axis_name="data")
+        pipe_want = torch.stack([torch.tanh(x[i] @ w[0]) for i in range(8)])
+        result["collectives"] = {
+            "seq_parallel_attention": {"shape": dict(zip(
+                ("B", "H", "KVH", "D", "S", "valid"), DIST_ATTN)),
+                "max_abs_err": err, "s": attn_s},
+            "compressed_psum": {
+                "elements": DIST_PSUM_ELEMS, "s": psum_s,
+                "codes_equal": bool(torch.equal(
+                    mean, compression.decompress(codes, scale))),
+                "error_equal": bool(torch.equal(new_err, plain_err))},
+            "pipeline_one_stage_equal": bool(torch.equal(pipe, pipe_want))}
+        co = result["collectives"]
+        if not err <= 1e-5:
+            failures.append(f"distributed: seq-parallel decode attention "
+                            f"off by {err}")
+        if not (co["compressed_psum"]["codes_equal"]
+                and co["compressed_psum"]["error_equal"]):
+            failures.append("distributed: compressed_psum differs from its "
+                            "plain codec")
+        if not co["pipeline_one_stage_equal"]:
+            failures.append("distributed: pipeline_forward differs from "
+                            "its one stage")
+    if device == "cuda":
+        timer = Timer(torch)
+        result["k1_shard_shapes"] = check_k1_shards(
+            torch, timer, cim_ops, torch.Generator(device="cuda")
+            .manual_seed(4321))
+        del timer
+    result["launches"] = launches
+    result["ok"] = not failures
+    return result, launches, failures
+
+
+def mesh_train_check(torch, device, cfg=None, batch_shape=TRAIN_BATCH
+                     ) -> tuple:
+    """MESH_TRAIN_STEPS qat steps of ``train_config()`` at
+    MESH_TRAIN_LAYERS layers from seed 0 on one fixed batch, without a
+    mesh and on a DIST_MESH mesh of one rank (params, master, m and v
+    DTensors laid out by ``resolve_param_specs``): params, m, v and the
+    losses must be equal bit for bit.  Returns (record, failures)."""
+    from repro_torch.data import synthetic
+    from repro_torch.distributed import sharding
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_loop
+
+    cfg = cfg or dataclasses.replace(train_config(),
+                                     n_layers=MESH_TRAIN_LAYERS)
+    tcfg = train_tcfg()
+    b, s = batch_shape
+    batch = synthetic.lm_batch(synthetic.TokenStreamConfig(cfg.vocab, s, b),
+                               0, device=device)
+
+    def fresh():
+        params = M.init(cfg, torch.Generator(device=device).manual_seed(0),
+                        device=device)
+        return params, opt_lib.init_opt_state(params)
+
+    def run(step, params, opt):
+        losses = []
+        t0 = time.perf_counter()
+        for _ in range(MESH_TRAIN_STEPS):
+            params, opt, m = step(params, opt, batch)
+            losses.append(float(m["loss"]))
+        return params, opt, losses, time.perf_counter() - t0
+
+    with train_loop.deterministic():
+        p1, o1, l1, t1 = run(train_loop.make_train_step(cfg, tcfg), *fresh())
+        with process_group(torch, device) as mesh:
+            params, opt = fresh()
+            sh = sharding.resolve_param_specs(M.pspec(cfg), mesh)
+            params = sharding.distribute(params, sh)
+            opt = {**{k: sharding.distribute(opt[k], sh)
+                      for k in ("master", "m", "v")}, "step": opt["step"]}
+            p2, o2, l2, t2 = run(train_loop.make_train_step(
+                cfg, tcfg, mesh=mesh), params, opt)
+
+            def full(tree):
+                return opt_lib.tree_map(lambda x: x.full_tensor(), tree)
+
+            p2, m2, v2 = full(p2), full(o2["m"]), full(o2["v"])
+    same = {name: all(torch.equal(x, y) for x, y in zip(
+                opt_lib.tree_leaves(a), opt_lib.tree_leaves(c)))
+            for name, a, c in (("params", p1, p2), ("m", o1["m"], m2),
+                               ("v", o1["v"], v2))}
+    same["losses"] = l1 == l2
+    record = {"arch": cfg.name, "layers": cfg.n_layers,
+              "d_model": cfg.d_model, "linear_mode": cfg.linear_mode,
+              "mesh": dict(zip(("data", "model"), DIST_MESH)),
+              "steps": MESH_TRAIN_STEPS, "losses": l1, "losses_mesh": l2,
+              "bit_identical": same, "s": t1, "s_mesh": t2}
+    failures = [] if all(same.values()) else [
+        f"mesh train: not bit-identical to the steps without a mesh "
+        f"({same})"]
+    return record, failures
 
 
 # ---------------------------------------------------------------------------
@@ -3290,6 +3596,8 @@ def main() -> int:
                                                paged_ops, cache=served)),
             ("durable", lambda: durable_path(torch, qwen, cim_ops,
                                              paged_ops, cache=served)),
+            ("distributed", lambda: distributed_path(
+                torch, qwen, cim_ops, paged_ops, cache=served)),
             ("families", lambda: families_path(
                 torch, cim_ops, paged_ops,
                 runs=[r for r in FAMILY_RUNS
@@ -3313,6 +3621,9 @@ def main() -> int:
                 line["nvidia_smi"] = smi
                 emit(line)
             report[path] = result
+            if path == "distributed":
+                by_name["cim_matmul"]["shard_shapes"] = result[
+                    "k1_shard_shapes"]
             if failures:
                 (out_dir / "chip_smoke.json").write_text(
                     json.dumps(report, indent=1))

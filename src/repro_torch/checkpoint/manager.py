@@ -16,6 +16,12 @@
   with ``"bfloat16"`` as the manifest dtype (no ``ml_dtypes`` needed), so
   a checkpoint of either package restores in the other.
 
+* **Meshes**: a tree of DTensors (``distributed/sharding.py``) is saved
+  as full arrays (every rank takes part in the gather; rank 0 writes), so
+  it restores on one device or onto another mesh shape (elastic
+  restore): :meth:`CheckpointManager.restore` with ``shardings`` lays
+  each leaf out for the mesh that is running.
+
 Paths follow the tree: dict keys, and list indices for the port's
 per-layer lists (``params/stack/blocks/0/attn/q/w``).  A JAX checkpoint
 stacks its layers (``params/stack/blocks/attn/q/w`` ``[L, ...]``);
@@ -32,6 +38,8 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch import device as device_lib
 
@@ -69,6 +77,8 @@ def _unflatten_like(template, flat: dict):
 def _to_host(x) -> tuple[np.ndarray, str]:
     """A leaf as (numpy payload, manifest dtype name): bfloat16 as its
     uint16 bit pattern."""
+    if isinstance(x, DTensor):
+        x = x.full_tensor()
     if isinstance(x, torch.Tensor):
         x = x.detach().to("cpu", copy=True)
         if x.dtype == torch.bfloat16:
@@ -99,19 +109,30 @@ class CheckpointManager:
 
     # ------------------------------------------------------------- save ---
     def save(self, step: int, tree) -> str:
-        return self._write(step, _host_flat(tree))
+        host = _host_flat(tree)
+        path = self._write(step, host) if _writer() else None
+        _barrier()
+        return path
 
     def save_async(self, step: int, tree) -> None:
-        self.wait()  # one outstanding save at a time
+        self._join()  # one outstanding save at a time
         host = _host_flat(tree)   # snapshot now
+        if not _writer():
+            return
         self._thread = threading.Thread(
             target=self._write, args=(step, host), daemon=True)
         self._thread.start()
 
-    def wait(self) -> None:
+    def _join(self) -> None:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+
+    def wait(self) -> None:
+        """The outstanding save is on disk (for every rank of a process
+        group: they wait for rank 0)."""
+        self._join()
+        _barrier()
 
     def _write(self, step: int, flat: dict) -> str:
         name = f"step_{step:09d}"
@@ -165,16 +186,36 @@ class CheckpointManager:
             return {k: _from_host(z[k], manifest["leaves"][k]["dtype"])
                     for k in z.files}
 
-    def restore(self, step: int, template, device="cuda"):
+    def restore(self, step: int, template, shardings=None, *,
+                device="cuda"):
         """Step ``step`` in ``template``'s tree structure (its leaves are
-        not read), on ``device``."""
+        not read), on ``device``.  ``shardings`` (a matching tree of
+        ``sharding.NamedSharding``, None for a leaf to keep whole) lays
+        each leaf out for the mesh that is running."""
         dev = device_lib.resolve(device)
         flat = self.load_flat(step)
         # A copy into the allocator's own (aligned) memory: the CPU's
         # matmul kernels may take another summation path for a buffer
         # that np.load placed at another alignment.
-        return _unflatten_like(template, {k: v.to(dev, copy=True)
+        tree = _unflatten_like(template, {k: v.to(dev, copy=True)
                                           for k, v in flat.items()})
+        if shardings is None:
+            return tree
+        from repro_torch.distributed import sharding
+        return sharding._map(
+            lambda x, sh: x if sh is None else sharding.distribute(x, sh),
+            tree, shardings)
+
+
+def _writer() -> bool:
+    """Whether this process writes the files: rank 0 of a process group,
+    or a process without one."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    if dist.is_initialized():
+        dist.barrier()
 
 
 def _host_flat(tree) -> dict:

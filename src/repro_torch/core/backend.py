@@ -37,6 +37,7 @@ import torch
 from repro_torch.core import calibration as cal_lib
 from repro_torch.core import macro as macro_lib
 from repro_torch.core import quant
+from repro_torch.distributed import spmd
 
 Params = dict[str, Any]
 
@@ -217,8 +218,9 @@ class QatBackend(ExecutionBackend):
             x = x.dequant()
         dtype = spec.dtype if spec is not None else x.dtype
         relu = spec.relu if spec is not None else False
+        # On a mesh the per-tensor scale is the global batch's.
         a_s = a_scale if a_scale is not None \
-            else quant.absmax_scale(x.detach())
+            else spmd.batch_max(quant.absmax_scale(x.detach()))
         w = params["w"].to(torch.float32)
         w_s = quant.absmax_scale(w.detach(), axis=0)
         y = quant.qat_linear(x.to(torch.float32), w, a_s, w_s,

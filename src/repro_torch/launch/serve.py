@@ -26,16 +26,32 @@ raises a ``ValueError`` naming ``frames``.  Like the JAX launcher it
 serves the arch's reduced config with random weights (seeded).  Without
 ``--continuous`` it is the static engine: ``--batch`` prompts of
 ``--prompt-len`` tokens drawn from ``PRNGKey(1)`` (``serve/prng.py``, the
-JAX launcher's prompts), one prefill and greedy decode on one device.  ``--continuous`` serves a
+JAX launcher's prompts), one prefill and greedy decode on one device
+(or a mesh, below).  ``--continuous`` serves a
 synthetic Poisson request stream with blocking prefill, or chunked
 prefill with ``--chunked-prefill``; ``--prefix-cache`` gives 80% of the
 requests a shared system prefix of half the prompt; ``--drain-deadline``
 drains the run at its first completion into a final snapshot in
 ``--snapshot-dir``, and ``--restore`` serves what such a snapshot holds
-in flight.  More than one device and ``--mesh-shape`` are not ported yet
-and raise ``NotImplementedError``.
+in flight.
+
+``--devices N --mesh-shape d,m`` (or ``p,d,m``) serves the static engine
+on a DeviceMesh of N ranks (``launch/mesh.py``), as the JAX launcher's
+pjit path: the (frozen) params are laid out by
+``sharding.resolve_param_specs``, each rank prefills and greedy-decodes
+its rows of the prompt batch with the column-parallel linears (q/k/v,
+gate/up, in_proj, the head) on its own output columns -- under a
+``w8a8_kernel`` plan K1 runs on its local shard -- and the row-parallel
+ones gathered to their full K (``distributed/spmd.py``).  ``--quant
+w8a8`` is ``M.DEFAULT_DEPLOY_PLAN``.  Without a launcher's ``RANK`` /
+``WORLD_SIZE`` in the environment it starts the N ranks itself: gloo
+ranks with ``--device cpu``, one CUDA card per rank otherwise (fewer
+cards than N raises).  ``--continuous`` serves on one device, as in
+JAX.
 """
 import argparse
+import contextlib
+import os
 import time
 
 import numpy as np
@@ -48,8 +64,10 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs the "
                     "kernels' plain PyTorch versions)")
-    ap.add_argument("--devices", type=int, default=None)
-    ap.add_argument("--mesh-shape", default=None)
+    ap.add_argument("--devices", type=int, default=None,
+                    help="ranks of the mesh (one card each on cuda)")
+    ap.add_argument("--mesh-shape", default=None,
+                    help="d,m or p,d,m (data, model[, pod]) mesh shape")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--tokens", type=int, default=16)
@@ -79,12 +97,21 @@ def main(argv=None):
     ap.add_argument("--profiler-annotations", action="store_true")
     args = ap.parse_args(argv)
 
-    later = "is not ported yet (ROADMAP queue 1)"
-    if args.devices not in (None, 1):
-        raise NotImplementedError(f"--devices {args.devices}: more than one "
-                                  f"device {later}")
-    if args.mesh_shape is not None:
-        raise NotImplementedError(f"--mesh-shape {later}")
+    from repro_torch.launch import mesh as mesh_lib
+
+    shape = n_dev = None
+    if args.mesh_shape is not None or (args.devices or 1) > 1:
+        shape, n_dev = mesh_lib.shape_and_count(args.mesh_shape,
+                                                args.devices)
+        if args.continuous:
+            raise ValueError("--continuous serves on one device (as the "
+                             "JAX launcher); drop --devices/--mesh-shape")
+        if not torch.distributed.is_initialized():
+            mesh_lib.check_devices(n_dev, args.device)
+            if "WORLD_SIZE" not in os.environ:
+                return mesh_lib.spawn(_rank_main, n_dev, device=args.device,
+                                      args=(argv,))[0]
+            mesh_lib.init_group(args.device)
 
     from repro_torch import configs as cfg_lib
     from repro_torch import device as device_lib
@@ -93,9 +120,12 @@ def main(argv=None):
     from repro_torch.serve import ContinuousEngine, Request, RequestStatus
 
     dev = device_lib.resolve(args.device)
+    if dev.type == "cuda" and torch.distributed.is_initialized():
+        dev = torch.device("cuda", torch.cuda.current_device())
     cfg = cfg_lib.reduced_config(args.arch)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = M.init(cfg, gen, device=dev)
+    pspec = M.pspec(cfg)
     plan = None
     if args.plan is not None:
         plan = backend_lib.load_plan(args.plan)
@@ -103,7 +133,14 @@ def main(argv=None):
         plan = M.DEFAULT_DEPLOY_PLAN
     if plan is not None:
         params = M.freeze_params(params, a_scale=0.05, plan=plan)
+        pspec = M.freeze_pspec(pspec, plan=plan)
     tag = "plan" if args.plan is not None else args.quant
+    if shape is not None:
+        from repro_torch.distributed import sharding
+        mesh = mesh_lib.make_mesh(shape, device=dev.type)
+        params = sharding.distribute(
+            params, sharding.resolve_param_specs(pspec, mesh))
+        return _static(args, cfg, params, plan, dev, tag, mesh=mesh)
     if not args.continuous:
         return _static(args, cfg, params, plan, dev, tag)
 
@@ -208,31 +245,69 @@ def _requests(args, cfg, request_cls):
     return reqs
 
 
-def _static(args, cfg, params, plan, dev, tag):
-    """The static engine on one device: prefill the prompt batch, then
-    greedy decode, as the JAX launcher's mesh path does.  Returns the
-    generated tokens ``[batch, tokens]``."""
+def _rank_main(rank, argv):
+    """One rank of a spawned mesh run: ``main`` in the running group."""
+    tokens = main(argv)
+    return tokens.numpy() if rank == 0 else None
+
+
+def static_generate(params, cfg, prompts, n_tokens: int, *, max_len: int,
+                    plan=None, mesh=None) -> tuple:
+    """Prefill ``prompts`` [B, S] and greedy-decode ``n_tokens`` tokens
+    (the static engine of the launcher).  Returns (tokens [B, n_tokens]
+    int64, the prefill's last-position logits [B, 1, V] f32), both for
+    the whole batch.  With ``mesh`` the params are DTensors
+    (``sharding.distribute``) and each rank serves its rows of the batch
+    (``distributed/spmd.py``); every rank returns the whole batch."""
+    from repro_torch.distributed import spmd
     from repro_torch.models import model as M
+
+    batch = {"tokens": prompts.long()}
+    ctx = contextlib.nullcontext()
+    if mesh is not None:
+        params = spmd.localize(params)
+        batch = spmd.local_batch(batch, mesh)
+        ctx = spmd.scope(mesh)
+    with ctx:
+        logits, caches = M.prefill(params, batch, cfg, max_len=max_len,
+                                   mode=plan)
+        first = logits
+        tok = torch.argmax(logits[:, -1], dim=-1)
+        out = [tok]
+        for _ in range(n_tokens - 1):
+            logits, caches = M.decode_step(params, {"tokens": tok[:, None]},
+                                           caches, cfg, mode=plan)
+            tok = torch.argmax(logits[:, -1], dim=-1)
+            out.append(tok)
+    tokens = torch.stack(out, dim=1)
+    if mesh is not None:
+        rows = prompts.shape[0]
+        tokens = spmd.gather_batch(tokens, mesh, global_rows=rows)
+        first = spmd.gather_batch(first, mesh, global_rows=rows)
+    return tokens, first
+
+
+def _static(args, cfg, params, plan, dev, tag, mesh=None):
+    """The static engine: prefill the prompt batch, then greedy decode, as
+    the JAX launcher's mesh path does (on one device without ``mesh``).
+    Returns the generated tokens ``[batch, tokens]``."""
     from repro_torch.serve import prng
 
     max_len = args.prompt_len + args.tokens + 8
     prompts = prng.randint(prng.PRNGKey(1, device=dev),
                            (args.batch, args.prompt_len), 0, cfg.vocab)
     t0 = time.perf_counter()
-    logits, caches = M.prefill(params, {"tokens": prompts.long()}, cfg,
-                               max_len=max_len, mode=plan)
-    tok = torch.argmax(logits[:, -1], dim=-1)
-    out = [tok]
-    for _ in range(args.tokens - 1):
-        logits, caches = M.decode_step(params, {"tokens": tok[:, None]},
-                                       caches, cfg, mode=plan)
-        tok = torch.argmax(logits[:, -1], dim=-1)
-        out.append(tok)
-    tokens = torch.stack(out, dim=1).to(torch.int32).cpu()
+    tokens, _ = static_generate(params, cfg, prompts, args.tokens,
+                                max_len=max_len, plan=plan, mesh=mesh)
+    tokens = tokens.to(torch.int32).cpu()
     dt = time.perf_counter() - t0
     total = args.batch * args.tokens
-    print(f"[{tag}] served {total} tokens on 1 devices ({dev}) in "
-          f"{dt:.2f}s ({total / dt:.1f} tok/s incl. warm-up)")
+    n = 1 if mesh is None else torch.distributed.get_world_size()
+    if mesh is None or torch.distributed.get_rank() == 0:
+        where = dev.type if mesh is None else f"{dev.type}, mesh " \
+            f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}"
+        print(f"[{tag}] served {total} tokens on {n} devices ({where}) in "
+              f"{dt:.2f}s ({total / dt:.1f} tok/s incl. warm-up)")
     return tokens
 
 

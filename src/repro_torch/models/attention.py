@@ -36,6 +36,9 @@ import torch
 
 from repro_torch.core import backend as backend_lib
 from repro_torch.core import quant
+# ``constrain`` sits at the JAX package's sites; it redistributes DTensors
+# only, so on the mesh path (local tensors, distributed/spmd.py) it is inert.
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import layers
 
 NEG_INF = -1e30
@@ -57,6 +60,17 @@ def init_attention(generator, d_model: int, n_heads: int, n_kv_heads: int,
     if qk_norm:
         p["q_norm"] = layers.init_rmsnorm(head_dim, device=device)
         p["k_norm"] = layers.init_rmsnorm(head_dim, device=device)
+    return p
+
+
+def attention_pspec(qk_norm: bool = False, frozen: bool = False) -> dict:
+    p = {"q": layers.dense_pspec("embed", "q_heads", frozen),
+         "k": layers.dense_pspec("embed", "kv_heads", frozen),
+         "v": layers.dense_pspec("embed", "kv_heads", frozen),
+         "o": layers.dense_pspec("q_heads", "embed", frozen)}
+    if qk_norm:
+        p["q_norm"] = {"scale": (None,)}
+        p["k_norm"] = {"scale": (None,)}
     return p
 
 
@@ -118,6 +132,9 @@ def attend_chunked(q, k, v, *, causal: bool, window: int | None = None,
     pad_k = band                      # left pad: every band slice in range
     k_p = torch.nn.functional.pad(k, (0, 0, 0, 0, pad_k, 0))
     v_p = torch.nn.functional.pad(v, (0, 0, 0, 0, pad_k, 0))
+    k_p = constrain(k_p, {0: "batch", 2: "model"})
+    v_p = constrain(v_p, {0: "batch", 2: "model"})
+    q = constrain(q, {0: "batch", 2: "model"})
     q_pos = band - q_chunk + torch.arange(q_chunk, device=dev)
     outs = []
     for i in range(s // q_chunk):
@@ -438,6 +455,7 @@ def attention(p: dict, x: torch.Tensor, cfg, *, positions=None,
 
     q = layers.dense(p["q"], x_in, mode, dtype=dt,
                      path="attn/q").reshape(b, s, cfg.n_heads, hd)
+    q = constrain(q, {0: "batch", 2: "model"})
 
     def out_proj(o):
         return layers.dense(p["o"], o.reshape(b, s, cfg.n_heads * hd), mode,
@@ -458,6 +476,8 @@ def attention(p: dict, x: torch.Tensor, cfg, *, positions=None,
                      path="attn/k").reshape(b, sk, cfg.n_kv_heads, hd)
     v = layers.dense(p["v"], kv_src, mode, dtype=dt,
                      path="attn/v").reshape(b, sk, cfg.n_kv_heads, hd)
+    k = constrain(k, {0: "batch", 2: "model"})
+    v = constrain(v, {0: "batch", 2: "model"})
     if "q_norm" in p:
         q = layers.rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = layers.rmsnorm(p["k_norm"], k, cfg.norm_eps)

@@ -3,7 +3,11 @@ rotary embeddings (with M-RoPE), the gated and gelu MLPs and the
 embedding (port of ``repro/models/layers.py``).
 
 Parameters are plain nested dicts of tensors with the JAX package's keys,
-so a converted JAX tree drops in unchanged.  Every weight-stationary
+so a converted JAX tree drops in unchanged.  Every ``init_*`` has a twin
+``*_pspec`` returning the same tree with *logical axis name tuples* as
+leaves (resolved to mesh placements by ``distributed/sharding.py``):
+'vocab', 'embed', 'embed_sharded', 'mlp', 'q_heads', 'kv_heads',
+'experts', 'ssm_inner', None (replicated).  Every weight-stationary
 linear goes through :func:`dense`, which routes to the backend registry;
 frozen (int8) params are dicts with 'w_q'.
 """
@@ -17,6 +21,7 @@ import torch
 
 from repro_torch.core import backend as backend_lib
 from repro_torch.core import quant
+from repro_torch.distributed import spmd
 
 
 def _normal(generator: torch.Generator, shape, device) -> torch.Tensor:
@@ -32,12 +37,22 @@ def init_dense(generator, in_dim: int, out_dim: int, dtype=torch.bfloat16,
     return {"w": w.to(dtype)}
 
 
+def dense_pspec(in_axis: str | None, out_axis: str | None,
+                frozen: bool = False) -> dict:
+    if frozen:
+        return {"w_q": (in_axis, out_axis), "w_scale": (out_axis,),
+                "a_scale": ()}
+    return {"w": (in_axis, out_axis)}
+
+
 def dense(p: dict, x, mode: Any = "exact", relu: bool = False, dtype=None,
           *, path: str = "", out_scale=None):
     """CiM-aware linear, dispatched through the backend registry (``mode``:
     a backend name, a DeploymentPlan resolved against ``path``, or None for
     exact).  ``x`` may be a QTensor (int8 residency); dtype=None computes
-    in x.dtype (f32 for a QTensor)."""
+    in x.dtype (f32 for a QTensor).  On a mesh, a column-parallel ``p``
+    (``spmd.ColumnShard``) computes this rank's output columns and
+    all-gathers them over 'model'."""
     q_in = isinstance(x, quant.QTensor)
     if dtype is None:
         dtype = torch.float32 if q_in else x.dtype
@@ -52,6 +67,8 @@ def dense(p: dict, x, mode: Any = "exact", relu: bool = False, dtype=None,
     if out_scale is not None and not backend.supports_out_requant:
         out_scale = None
     y = backend.apply(p, x, spec, out_scale=out_scale)
+    if isinstance(p, spmd.ColumnShard):
+        y = spmd.gather_columns(y, p)
     if isinstance(y, quant.QTensor):
         return y
     return y.to(dtype)
@@ -149,6 +166,15 @@ def init_mlp(generator, d_model: int, d_ff: int, act: str = "silu",
     }
 
 
+def mlp_pspec(act: str = "silu", frozen: bool = False) -> dict:
+    if act == "silu":
+        return {"gate": dense_pspec("embed", "mlp", frozen),
+                "up": dense_pspec("embed", "mlp", frozen),
+                "down": dense_pspec("mlp", "embed", frozen)}
+    return {"in": dense_pspec("embed", "mlp", frozen),
+            "out": dense_pspec("mlp", "embed", frozen)}
+
+
 def mlp(p: dict, x: torch.Tensor, act: str = "silu", mode="exact",
         dtype=None, path: str = "mlp") -> torch.Tensor:
     """SwiGLU for ``act="silu"``; otherwise ``out(gelu(in(x)))`` with the
@@ -175,6 +201,11 @@ def init_embedding(generator, vocab: int, d_model: int,
     return {"table": e.to(dtype)}
 
 
+def embedding_pspec() -> dict:
+    # The embed dim over 'model': the token gather is shard-local.
+    return {"table": (None, "embed_sharded")}
+
+
 def embed(p: dict, ids: torch.Tensor) -> torch.Tensor:
     return p["table"][ids]
 
@@ -182,3 +213,7 @@ def embed(p: dict, ids: torch.Tensor) -> torch.Tensor:
 def init_lm_head(generator, d_model: int, vocab: int, dtype=torch.bfloat16,
                  *, device="cpu") -> dict:
     return init_dense(generator, d_model, vocab, dtype, device=device)
+
+
+def lm_head_pspec(frozen: bool = False) -> dict:
+    return dense_pspec("embed", "vocab", frozen)

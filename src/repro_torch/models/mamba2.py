@@ -29,6 +29,9 @@ import math
 import torch
 import torch.nn.functional as F
 
+# ``constrain`` sits at the JAX package's sites; it redistributes DTensors
+# only, so on the mesh path (local tensors, distributed/spmd.py) it is inert.
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import layers
 
 
@@ -60,6 +63,19 @@ def init_mamba2(generator, d_model: int, cfg_ssm, dtype=torch.bfloat16, *,
         "dt_bias": torch.log(torch.expm1(torch.exp(u * (hi - lo) + lo))),
         "norm": layers.init_rmsnorm(di, device=device),
         "out_proj": out_proj,
+    }
+
+
+def mamba2_pspec() -> dict:
+    return {
+        "in_proj": layers.dense_pspec("embed", "ssm_inner"),
+        "conv_w": (None, "ssm_inner"),
+        "conv_b": ("ssm_inner",),
+        "a_log": (None,),
+        "d_skip": (None,),
+        "dt_bias": (None,),
+        "norm": {"scale": ("ssm_inner",)},
+        "out_proj": layers.dense_pspec("ssm_inner", "embed"),
     }
 
 
@@ -184,6 +200,7 @@ def mamba2_block(p: dict, x: torch.Tensor, cfg, *, state: dict | None = None,
     pdim = cfg_ssm.headdim
 
     zxbcdt = layers.dense(p["in_proj"], x, mode, path="ssm/in_proj")
+    zxbcdt = constrain(zxbcdt, {0: "batch"})
     # jnp.split(.., [di, 2 di + 2n]) takes indices; torch.split sizes.
     z, xbc, dt_raw = torch.split(zxbcdt, [di, di + 2 * n, nh], dim=-1)
     conv_out, new_conv = _causal_conv(
@@ -192,9 +209,10 @@ def mamba2_block(p: dict, x: torch.Tensor, cfg, *, state: dict | None = None,
     conv_out = F.silu(conv_out.to(torch.float32)).to(x.dtype)
     xs, b, c = torch.split(conv_out, [di, n, n], dim=-1)
     dt = _softplus(dt_raw.to(torch.float32) + p["dt_bias"])   # [B,S,H]
+    dt = constrain(dt, {0: "batch", 2: "model"})
     a = -torch.exp(p["a_log"])                                 # [H] < 0
 
-    xh = xs.reshape(bsz, s, nh, pdim)
+    xh = constrain(xs.reshape(bsz, s, nh, pdim), {0: "batch", 2: "model"})
     f32 = torch.float32
     new_state = None
     if state is None:

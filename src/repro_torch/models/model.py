@@ -4,6 +4,7 @@ dense and MoE decoders, the ssm and hybrid state-space stacks, the
 encoder-decoder (whisper) and M-RoPE (qwen2-vl)).
 
   init(cfg, generator, device)                 -> params
+  pspec(cfg) / freeze_pspec(tree, plan)        -> logical-axes trees
   freeze_params(params, a_scale, plan)         -> deployed params
   forward(params, batch, cfg, train=...)       -> (hidden, aux)
   loss_fn(params, batch, cfg)                  -> (loss, metrics) [chunked CE]
@@ -51,6 +52,20 @@ def init(cfg, generator: torch.Generator, *, device="cuda") -> dict:
                                            cfg.padded_vocab, dt, device=dev)
     if cfg.arch_type == "encdec":
         p["enc_final_norm"] = layers.init_rmsnorm(cfg.d_model, device=dev)
+    return p
+
+
+def pspec(cfg, frozen: bool = False) -> dict:
+    """The logical-axes tree of :func:`init`'s params (JAX's
+    ``model.pspec`` with each leaf's leading ``"layers"`` entry dropped:
+    the port keeps a per-layer list)."""
+    p = {"embed": layers.embedding_pspec(),
+         "stack": transformer.stack_pspec(cfg, frozen),
+         "final_norm": {"scale": (None,)}}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = layers.lm_head_pspec(frozen)
+    if cfg.arch_type == "encdec":
+        p["enc_final_norm"] = {"scale": (None,)}
     return p
 
 
@@ -120,6 +135,50 @@ def freeze_params(params, a_scale: float = 1.0, plan=None):
     return walk("", params)
 
 
+def freeze_pspec(pspec_tree, plan=None):
+    """The logical-axes tree of :func:`freeze_params`' output: a linear
+    whose backend deploys int8 becomes ``{w_q: (in, out), w_scale:
+    (out,), a_scale: ()}``, an int8 bank ``{gate,up,down}_q`` (its
+    spec), ``{..}_scale`` ``(experts, out)`` and one ``a_scale: ()``."""
+    plan = _as_deploy_plan(plan)
+
+    def is_frozen(path):
+        # What matters is whether freeze emits the int8 layout (qat does,
+        # though its apply reads master params).
+        return backend_lib.get_backend(plan.backend_for(path)).deploys_int8
+
+    def walk(path, node):
+        if isinstance(node, list):
+            return [walk(path, v) for v in node]
+        if not isinstance(node, dict):
+            return node
+        if "w" in node and isinstance(node["w"], tuple):
+            if not is_frozen(path):
+                return node
+            spec = node["w"]
+            out = {"w_q": spec, "w_scale": spec[:-2] + (spec[-1],),
+                   "a_scale": spec[:-2]}
+            if "b" in node:
+                out["b"] = node["b"]
+            return out
+        banks = ("gate", "up", "down")
+        if set(banks) <= set(node) and isinstance(node["gate"], tuple):
+            rest = {k: walk(f"{path}/{k}", v) for k, v in node.items()
+                    if k not in banks}
+            if not is_frozen(path):
+                return {**rest, **{k: node[k] for k in banks}}
+            out = {}
+            for k in banks:
+                out[f"{k}_q"] = node[k]
+                out[f"{k}_scale"] = node[k][:-2] + (node[k][-1],)
+            out["a_scale"] = node["gate"][:-3]
+            return {**out, **rest}
+        return {k: walk(f"{path}/{k}" if path else k, v)
+                for k, v in node.items()}
+
+    return walk("", pspec_tree)
+
+
 def _embed_inputs(params, batch, cfg):
     """The stack's input: ``embeds`` (cast to the model dtype) when the
     batch has them, else the token embedding."""
@@ -172,9 +231,12 @@ def logits_fn(params, h, cfg, mode=None):
     return logits
 
 
+AUX_WEIGHT = 0.01     # the MoE balance loss's weight in loss_fn
+
+
 def loss_fn(params, batch, cfg, *, loss_chunk: int = 256,
             remat_policy: str = "nothing", mode=None,
-            aux_weight: float = 0.01):
+            aux_weight: float = AUX_WEIGHT):
     """Chunked-softmax LM loss over the training forward (remat on): the
     f32 logits are made ``[B, loss_chunk, V]`` at a time, never ``[B, S,
     V]``, the padding columns masked to -1e30, positions with ``labels <

@@ -17,6 +17,12 @@ of ``repro/models/moe.py``).
   ``w8a8_kernel`` plan each bank product is one K1 launch per expert
   (``kernels/cim_matmul``), whose epilogue ``acc * (a_scale * w_scale)``
   is the reference's order.
+* On a mesh (``distributed/spmd.py``) the banks may hold this rank's
+  experts only (``spmd.ExpertShard``, experts on 'model'): the rank runs
+  its experts' rows of the dispatch buffer, takes the down bank's
+  activation scale as the max over every rank's experts, and
+  all-gathers the outputs; the balance loss's means are over the global
+  batch.
 """
 from __future__ import annotations
 
@@ -24,6 +30,10 @@ import torch
 
 from repro_torch.core import backend as backend_lib
 from repro_torch.core import quant
+from repro_torch.distributed import spmd
+# ``constrain`` sits at the JAX package's sites; it redistributes DTensors
+# only, so on the mesh path (local tensors, distributed/spmd.py) it is inert.
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import layers
 
 
@@ -49,6 +59,16 @@ def init_moe(generator, d_model: int, cfg_moe, dtype=torch.bfloat16, *,
     return p
 
 
+def moe_pspec(cfg_moe) -> dict:
+    p = {"router": layers.dense_pspec("embed", None),
+         "gate": ("experts", "embed", None),
+         "up": ("experts", "embed", None),
+         "down": ("experts", None, "embed")}
+    if cfg_moe.n_shared_experts:
+        p["shared"] = layers.mlp_pspec("silu")
+    return p
+
+
 def int8_bmm(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     """[E, C, K] int8 x [E, K, N] int8 -> exact int32 (float64
     accumulation: |sum| < 2**53)."""
@@ -71,23 +91,32 @@ def bank_matmul(xq, w_q, a_s, w_scale, *, kernel: bool) -> torch.Tensor:
 
 def _expert_ffn(p: dict, buf: torch.Tensor, dtype, *,
                 kernel: bool = False) -> torch.Tensor:
-    """buf [E, C', d] -> [E, C', d] through the per-expert SwiGLU bank."""
+    """buf [E, C', d] -> [E, C', d] through the per-expert SwiGLU bank.
+    Expert weights rest FSDP-sharded ([E:model, d:data, ff:None]);
+    ``spmd.localize`` gathers their d / ff dims for compute."""
+    def gathered(w):
+        return constrain(w, {0: "model", 1: None, 2: None})
+
     if "gate_q" in p:
         a_s = p["a_scale"]
         buf_q = quant.quantize(buf.to(torch.float32), a_s)
-        g = bank_matmul(buf_q, p["gate_q"], a_s, p["gate_scale"],
+        g = bank_matmul(buf_q, gathered(p["gate_q"]), a_s, p["gate_scale"],
                         kernel=kernel)
-        u = bank_matmul(buf_q, p["up_q"], a_s, p["up_scale"], kernel=kernel)
+        u = bank_matmul(buf_q, gathered(p["up_q"]), a_s, p["up_scale"],
+                        kernel=kernel)
         h = g * torch.sigmoid(g) * u
-        h_s = torch.clamp_min(h.abs().amax(), 1e-6) / 127.0
+        h_s = torch.clamp_min(spmd.batch_max(h.abs().amax(), p),
+                              1e-6) / 127.0
         h_q = quant.quantize(h, h_s)
-        out = bank_matmul(h_q, p["down_q"], h_s, p["down_scale"],
-                          kernel=kernel)
+        out = bank_matmul(h_q, gathered(p["down_q"]), h_s,
+                          p["down_scale"], kernel=kernel)
         return out.to(dtype)
-    g = torch.einsum("ecd,edf->ecf", buf.to(dtype), p["gate"].to(dtype))
-    u = torch.einsum("ecd,edf->ecf", buf.to(dtype), p["up"].to(dtype))
+    g = torch.einsum("ecd,edf->ecf", buf.to(dtype),
+                     gathered(p["gate"]).to(dtype))
+    u = torch.einsum("ecd,edf->ecf", buf.to(dtype),
+                     gathered(p["up"]).to(dtype))
     h = torch.nn.functional.silu(g.to(torch.float32)).to(dtype) * u
-    return torch.einsum("ecf,efd->ecd", h, p["down"].to(dtype))
+    return torch.einsum("ecf,efd->ecd", h, gathered(p["down"]).to(dtype))
 
 
 def moe(p: dict, x: torch.Tensor, cfg_moe, mode="exact", dtype=None
@@ -101,6 +130,7 @@ def moe(p: dict, x: torch.Tensor, cfg_moe, mode="exact", dtype=None
     e, k = cfg_moe.n_experts, cfg_moe.top_k
     g, tg = b, s
     dev = x.device
+    x = constrain(x, {0: "batch"})
     logits = layers.dense(p["router"], x, "exact", dtype=dtype,
                           path="moe/router").to(torch.float32)
     probs = torch.softmax(logits, dim=-1)                     # [G, Tg, E]
@@ -108,10 +138,11 @@ def moe(p: dict, x: torch.Tensor, cfg_moe, mode="exact", dtype=None
     top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
 
     # Load-balancing auxiliary loss (Switch): E * sum_e f_e * P_e.
-    me = probs.mean(dim=(0, 1))
-    ce = torch.zeros(e, dtype=torch.float32, device=dev).index_add_(
-        0, top_e.reshape(-1), torch.ones(g * tg * k, device=dev)) \
-        / (g * tg * k)
+    me = spmd.batch_mean(probs.mean(dim=(0, 1)))
+    ce = spmd.batch_mean(torch.zeros(e, dtype=torch.float32,
+                                     device=dev).index_add_(
+        0, top_e.reshape(-1), torch.ones(g * tg * k, device=dev))
+        / (g * tg * k))
     aux_loss = e * torch.sum(me * ce)
 
     capacity = max(1, int(tg * k * cfg_moe.capacity_factor / e))
@@ -119,9 +150,11 @@ def moe(p: dict, x: torch.Tensor, cfg_moe, mode="exact", dtype=None
         capacity = max(capacity, tg)          # small calls are dropless
 
     # Per-group positions, token-major slots.
-    flat_e = top_e.reshape(g, tg * k)                         # [G, Tg*k]
-    onehot = torch.nn.functional.one_hot(flat_e, e).to(torch.int32)
-    pos_in_e = torch.cumsum(onehot, dim=1) - onehot
+    flat_e = constrain(top_e.reshape(g, tg * k), {0: "batch"})
+    onehot = constrain(torch.nn.functional.one_hot(flat_e, e).to(
+        torch.int32), {0: "batch"})
+    pos_in_e = constrain(torch.cumsum(onehot, dim=1) - onehot,
+                         {0: "batch"})
     pos = torch.gather(pos_in_e, 2, flat_e[..., None])[..., 0]
     keep = pos < capacity
 
@@ -139,12 +172,23 @@ def moe(p: dict, x: torch.Tensor, cfg_moe, mode="exact", dtype=None
     xt_pad = torch.cat([x, torch.zeros(g, 1, d, dtype=x.dtype, device=dev)],
                        dim=1)
     buf = torch.gather(xt_pad, 1, inv[..., None].expand(-1, -1, d))
-    buf_e = buf.reshape(g, e, capacity, d).transpose(0, 1).reshape(
-        e, g * capacity, d)
+    buf = constrain(buf.reshape(g, e, capacity, d), {0: "batch"})
+    # [G, E, C, d] -> [E, G*C, d]; each bank then runs one batched
+    # product.  On a mesh a rank holds its batch rows' buffer for every
+    # expert and runs its own experts' rows of it (spmd.ExpertShard);
+    # gather_experts then all-gathers the outputs over 'model'.
+    buf_e = constrain(buf.transpose(0, 1).reshape(e, g * capacity, d),
+                      {0: "model"})
+    if isinstance(p, spmd.ExpertShard):      # this rank's experts only
+        n_local = (p["gate_q"] if "gate_q" in p else p["gate"]).shape[0]
+        buf_e = buf_e[p.lo:p.lo + n_local]
     kernel = backend_lib.resolve_backend(mode, "moe") == "w8a8_kernel"
     out_e = _expert_ffn(p, buf_e, dtype, kernel=kernel)       # [E, G*C, d]
-    out_flat = out_e.reshape(e, g, capacity, d).transpose(0, 1).reshape(
-        g, e * capacity, d)
+    if isinstance(p, spmd.ExpertShard):
+        out_e = spmd.gather_experts(out_e, p)
+    out_e = constrain(out_e, {0: "model"})
+    out_flat = constrain(out_e.reshape(e, g, capacity, d).transpose(
+        0, 1).reshape(g, e * capacity, d), {0: "batch"})
 
     # Combine: each token's k expert outputs, slot by slot, in dtype.
     y = torch.zeros((g, tg, d), dtype=dtype, device=dev)

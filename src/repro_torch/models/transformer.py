@@ -23,6 +23,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import quant
+# ``constrain`` sits at the JAX package's sites; it redistributes DTensors
+# only, so on the mesh path (local tensors, distributed/spmd.py) it is inert.
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers, mamba2
 from repro_torch.models import moe as moe_lib
@@ -40,6 +43,13 @@ def init_dense_block(generator, cfg, dtype, *, device="cpu") -> dict:
     }
 
 
+def dense_block_pspec(cfg, frozen=False) -> dict:
+    return {"attn_norm": {"scale": (None,)},
+            "attn": attn_lib.attention_pspec(cfg.qk_norm, frozen),
+            "mlp_norm": {"scale": (None,)},
+            "mlp": layers.mlp_pspec(cfg.act, frozen)}
+
+
 def dense_block(p, x, cfg, *, cache=None, positions=None, causal=True,
                 mode=None):
     h, new_cache = attn_lib.attention(
@@ -49,6 +59,10 @@ def dense_block(p, x, cfg, *, cache=None, positions=None, causal=True,
     x = x + layers.mlp(p["mlp"],
                        layers.rmsnorm(p["mlp_norm"], x, cfg.norm_eps),
                        cfg.act, mode or cfg.linear_mode)
+    if getattr(cfg, "act_shard", False):
+        # JAX's site for the residual stream d-sharded between blocks
+        # (remat carries shrink by the TP degree there).
+        x = constrain(x, {0: "batch", 2: "model"})
     return x, new_cache
 
 
@@ -62,6 +76,13 @@ def init_moe_block(generator, cfg, dtype, *, device="cpu") -> dict:
         "moe": moe_lib.init_moe(generator, cfg.d_model, cfg.moe, dtype,
                                 device=device),
     }
+
+
+def moe_block_pspec(cfg, frozen=False) -> dict:
+    return {"attn_norm": {"scale": (None,)},
+            "attn": attn_lib.attention_pspec(cfg.qk_norm, frozen),
+            "moe_norm": {"scale": (None,)},
+            "moe": moe_lib.moe_pspec(cfg.moe)}
 
 
 def moe_block(p, x, cfg, *, cache=None, positions=None, mode=None):
@@ -84,6 +105,10 @@ def init_ssm_block(generator, cfg, dtype, *, device="cpu") -> dict:
     }
 
 
+def ssm_block_pspec(cfg) -> dict:
+    return {"norm": {"scale": (None,)}, "mamba": mamba2.mamba2_pspec()}
+
+
 def ssm_block(p, x, cfg, *, state=None, mode=None,
               return_final_state: bool = False):
     h, new_state = mamba2.mamba2_block(
@@ -100,6 +125,13 @@ def init_decoder_block(generator, cfg, dtype, *, device="cpu") -> dict:
     blk["xattn"] = attn_lib.init_attention(
         generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
         cfg.resolved_head_dim, cfg.qk_norm, dtype, device=device)
+    return blk
+
+
+def decoder_block_pspec(cfg, frozen=False) -> dict:
+    blk = dense_block_pspec(cfg, frozen)
+    blk["xattn_norm"] = {"scale": (None,)}
+    blk["xattn"] = attn_lib.attention_pspec(cfg.qk_norm, frozen)
     return blk
 
 
@@ -171,6 +203,28 @@ def init_stack(generator, cfg, dtype=torch.bfloat16, *, device="cpu"
         _n_groups(cfg)
         stack["shared_attn"] = init_dense_block(generator, cfg, dtype,
                                                 device=device)
+    return stack
+
+
+def stack_pspec(cfg, frozen=False) -> dict:
+    """``init_stack``'s tree of logical specs.  JAX stacks a leading
+    ``"layers"`` axis (never sharded); here each layer of the list has
+    its own copy of the block's specs."""
+    at = _arch(cfg)
+    if at == "encdec":
+        return {"encoder": [dense_block_pspec(cfg, frozen)
+                            for _ in range(cfg.n_enc_layers)],
+                "decoder": [decoder_block_pspec(cfg, frozen)
+                            for _ in range(cfg.n_layers)]}
+    if at in ("ssm", "hybrid"):
+        block = ssm_block_pspec(cfg)
+    elif at == "moe":
+        block = moe_block_pspec(cfg, frozen)
+    else:
+        block = dense_block_pspec(cfg, frozen)
+    stack = {"blocks": [block] * cfg.n_layers}
+    if at == "hybrid":
+        stack["shared_attn"] = dense_block_pspec(cfg, frozen)
     return stack
 
 

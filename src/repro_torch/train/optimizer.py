@@ -85,12 +85,15 @@ def _pow_f32(base: float, step: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(grads, opt_state, params, cfg) -> tuple:
+def adamw_update(grads, opt_state, params, cfg, *, gnorm=None) -> tuple:
     """Returns (new params in each param's dtype, new opt state, metrics
-    ``{"lr", "grad_norm"}``)."""
+    ``{"lr", "grad_norm"}``).  ``gnorm`` is the gradients' global norm
+    when the caller holds only shards of them (on a mesh); by default
+    :func:`global_norm` of ``grads``."""
     step = opt_state["step"] + 1
     lr = cosine_schedule(step, cfg.lr, cfg.warmup_steps, cfg.total_steps)
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     clip = torch.clamp_max(cfg.grad_clip / torch.clamp_min(gnorm, 1e-9),
                            1.0)
     b1, b2 = cfg.b1, cfg.b2

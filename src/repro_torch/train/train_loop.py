@@ -11,7 +11,17 @@
     leaves, in each parameter's dtype (JAX's ``value_and_grad``);
   * ``tcfg.microbatches`` > 1 accumulates them in f32 over interleaved
     microbatches (row ``i`` goes to microbatch ``i % m``), then divides;
-  * AdamW + cosine + clipping from ``train/optimizer.py``.
+  * AdamW + cosine + clipping from ``train/optimizer.py``;
+  * with ``mesh`` (a DeviceMesh) the step runs on it: params and the
+    optimizer's master, m and v are DTensors laid out by
+    ``sharding.resolve_param_specs`` (``step`` replicated), the global
+    batch (the same on every rank) is split by ``sharding.data_specs``,
+    each rank gathers the params (``spmd.localize``) and differentiates
+    its rows' share of the global loss (token-weighted; the MoE balance
+    loss over the global batch), the gradients are all-reduced over the
+    batch axes, and AdamW updates each rank's shards with the global
+    gradient norm.  The model axis holds shards of the state and does
+    the same work on every rank of it.
 
 ``run`` drives it: it restores the latest checkpoint (params, optimizer,
 step) or starts from ``model.init``, and regenerates the data stream from
@@ -35,6 +45,7 @@ import torch
 from repro_torch import device as device_lib
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.data import synthetic
+from repro_torch.distributed import spmd
 from repro_torch.models import model as model_lib
 from repro_torch.train import optimizer as opt_lib
 
@@ -65,7 +76,7 @@ def deterministic():
         torch.use_deterministic_algorithms(prev, warn_only=prev_warn)
 
 
-def make_train_step(cfg, tcfg, plan=None) -> Callable:
+def make_train_step(cfg, tcfg, plan=None, *, mesh=None) -> Callable:
     # The train step takes the mode-or-plan the deployment does: a
     # DeploymentPlan (qat on the layers that deploy int8, exact on the
     # rest) or the config's linear_mode string.
@@ -80,13 +91,55 @@ def make_train_step(cfg, tcfg, plan=None) -> Callable:
                 opt_lib.tree_unflatten_like(params, xs), batch, cfg,
                 remat_policy=getattr(tcfg, "remat_policy", "nothing"),
                 mode=mode)
-            grads = torch.autograd.grad(loss, xs, allow_unused=True)
+            objective = loss
+            if mesh is not None:
+                # This rank's share of the global objective: its tokens'
+                # weight in the global CE; the balance loss is already
+                # the global batch's, and every batch rank adds its
+                # gradient.
+                cnt = (batch["labels"] >= 0).sum().to(torch.float32)
+                total = spmd.batch_sum(cnt, mesh)
+                weight = torch.clamp_min(cnt, 1.0) / torch.clamp_min(
+                    total, 1.0)
+                aux_w = model_lib.AUX_WEIGHT
+                objective = weight * mets["ce"] + mets["aux"] * (
+                    aux_w / spmd.batch_size(mesh))
+                mets = {**mets, "ce": spmd.batch_sum(weight * mets["ce"],
+                                                     mesh)}
+                loss = mets["ce"] + aux_w * mets["aux"]
+            grads = torch.autograd.grad(objective, xs, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for g, p in zip(grads, leaves)]
         return loss.detach(), {k: v.detach() for k, v in mets.items()}, \
             grads
 
-    def train_step(params, opt_state, batch):
+    def mesh_step(params, opt_state, batch):
+        local = spmd.localize(params, keep_model=False)
+        loss, ce, grads = accumulate(local, spmd.local_batch(batch, mesh))
+        grads = [spmd.batch_sum(g, mesh) for g in grads]
+        rest = opt_lib.tree_leaves(params)
+        shards = [spmd.to_rest(g, like) for g, like in zip(grads, rest)]
+        gnorm = spmd.global_norm(shards, rest)
+
+        def loc(tree):
+            return opt_lib.tree_map(lambda x: x.to_local(), tree)
+
+        opt_local = {k: (loc(v) if k != "step" else v)
+                     for k, v in opt_state.items()}
+        new_params, new_opt, opt_metrics = opt_lib.adamw_update(
+            opt_lib.tree_unflatten_like(params, shards), opt_local,
+            loc(params), tcfg, gnorm=gnorm)
+
+        def back(tree):
+            return opt_lib.tree_map(spmd.as_dtensor, tree, params)
+
+        new_opt = {k: (back(v) if k != "step" else v)
+                   for k, v in new_opt.items()}
+        return back(new_params), new_opt, {"loss": loss, "ce": ce,
+                                           **opt_metrics}
+
+    def accumulate(params, batch):
+        """(loss, ce, grads) over ``tcfg.microbatches`` microbatches."""
         m = tcfg.microbatches
         if m > 1:
             acc = [torch.zeros(p.shape, dtype=torch.float32,
@@ -99,10 +152,15 @@ def make_train_step(cfg, tcfg, plan=None) -> Callable:
                 loss = loss + l_mb
                 ce = ce + mets["ce"]
             grads = [a / m for a in acc]
-            loss, ce = loss / m, ce / m
-        else:
-            loss, mets, grads = value_and_grad(params, batch)
-            ce = mets["ce"]
+            return loss / m, ce / m, grads
+        loss, mets, grads = value_and_grad(params, batch)
+        return loss, mets["ce"], grads
+
+    def train_step(params, opt_state, batch):
+        if mesh is not None:
+            with spmd.scope(mesh):
+                return mesh_step(params, opt_state, batch)
+        loss, ce, grads = accumulate(params, batch)
         new_params, new_opt, opt_metrics = opt_lib.adamw_update(
             opt_lib.tree_unflatten_like(params, grads), opt_state, params,
             tcfg)

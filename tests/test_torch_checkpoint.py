@@ -215,6 +215,8 @@ def test_train_launcher_on_cpu(tmp_path):
     out = launch.main(common + ["--steps", "4", "--plan", "qat"])
     assert out["start"] == 2
     assert [h["step"] for h in out["history"]] == [2, 3]
-    for flag, value in (("--devices", "2"), ("--mesh-shape", "1,2")):
-        with pytest.raises(NotImplementedError, match=flag):
-            launch.main(common + [flag, value])
+    # Auto-resume onto a mesh of 2 gloo ranks.
+    out = launch.main(common + ["--steps", "5", "--devices", "2",
+                                "--mesh-shape", "1,2"])
+    assert out["start"] == 4 and [h["step"] for h in out["history"]] == [4]
+    assert np.isfinite(out["history"][0]["loss"])

@@ -193,7 +193,7 @@ def test_launcher_serves_on_cpu(tmp_path):
                         "--tokens", "3"])
     assert tuple(toks.shape) == (2, 3)
     for flag, value in (("--devices", "2"), ("--mesh-shape", "1,1")):
-        with pytest.raises(NotImplementedError, match=flag):
+        with pytest.raises(ValueError, match=flag):
             launch.main(["--arch", "qwen3-8b", "--continuous", "--device",
                          "cpu", flag, value])
 
