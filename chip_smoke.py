@@ -83,7 +83,20 @@ Phases (each prints one JSON line; any failure exits non-zero):
                the column shards of qwen3-8b's q, k/v, gate/up and head at
                a model axis of 16 (N 256, 64, 768, 9504; M 8 and 512)
                beside its plain version, bound and torch._int_mm.
-9. families -- the rest of the decoder-only family at published widths
+9. dryrun   -- the port's dry run (launch/dryrun.py): qwen3-8b x
+               decode_32k x w8a8 (all 36 layers) and granite-moe-1b-a400m
+               x train_4k x none (12 of its 24 layers, to keep the phase
+               in its 90 s) traced on fake CUDA tensors on rank 0 of the
+               16 x 16 production mesh over a fake 256-rank group, one
+               child process each, both started at the phase's start (JAX's
+               keys; K1 recorded 36 x 7 + 1 times per decode step); while
+               they run, the serving phases' qwen3-8b at decode 8 x 4096
+               and prefill 4 x 2048 on the card, traced and run for real
+               under one counter: flops, traffic and K1 records equal, K1's
+               launches equal its records, the trace's peak within 5 % (or
+               64 MiB) of the real step's max_memory_allocated delta; step
+               ms beside the roofline bound (repro_torch.roofline).
+10. families -- the rest of the decoder-only family at published widths
                (depth cut where noted on each run's line), random weights
                from seed 0 frozen under w8a8_kernel (routers float),
                greedy: moonshot-v1-16b-a3b (8 of 48 layers) and
@@ -122,7 +135,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
                runs' first-token logits move with whisper's frames and
                with qwen2-vl's image positions; tokens per wall second,
                decode-step ms, peak memory.
-10. train   -- in a child process with CUBLAS_WORKSPACE_CONFIG set (so
+11. train   -- in a child process with CUBLAS_WORKSPACE_CONFIG set (so
                cuBLAS is deterministic there and as before elsewhere):
                granite-moe-1b-a400m at its published size (24 layers,
                ~1.385 B parameters, bf16) trained under the qat plan with
@@ -143,14 +156,14 @@ Phases (each prints one JSON line; any failure exits non-zero):
                mesh and on a (1, 1) mesh of an NCCL group of one rank
                (params, master, m, v as DTensors): params, m, v and
                losses bit-identical.
-11. vgg8    -- the paper's VGG-8 deployment path (repro_torch.launch.fig10)
+12. vgg8    -- the paper's VGG-8 deployment path (repro_torch.launch.fig10)
                at its published widths with random weights from a seed:
                w8a8_kernel (with and without residency) and
                bitserial_kernel logits bit-identical to their plain plans,
                the cim plan with 8 sampled chips, calibrated full scales
                and per-channel fine-tunes, and the CAAT macro op on every
                cim layer's int8 inputs against the behavioural simulation.
-12. the ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
+13. the ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 ``--skip-main`` stops after the kernel phase (a quick kernel check);
@@ -177,11 +190,6 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
-PEAK_INT8_OPS = 1979e12            # H100 SXM dense int8 tensor-core rate
-PEAK_BF16_OPS = 989e12             # H100 SXM dense bf16 tensor-core rate
-PEAK_TF32_OPS = 495e12             # H100 SXM dense TF32 tensor-core rate
-PEAK_F32_OPS = 67e12               # H100 SXM f32 rate on the CUDA cores
 K1_SHAPES = ((4096, 4096), (4096, 1024), (4096, 12288), (12288, 4096),
              (4096, 152064))       # (K, N) of q/o, k/v, gate/up, down, head
 # (M, K, N) of VGG-8's eight layers at batch 32 (conv1 ... conv6, fc1,
@@ -189,6 +197,14 @@ K1_SHAPES = ((4096, 4096), (4096, 1024), (4096, 12288), (12288, 4096),
 VGG8_SHAPES = ((32768, 27, 128), (32768, 1152, 128), (8192, 1152, 256),
                (8192, 2304, 256), (2048, 2304, 512), (2048, 4608, 512),
                (32, 8192, 1024), (32, 1024, 10))
+
+
+def hw():
+    """The card's memory rate and peak rates (``repro_torch.roofline.hw``,
+    the port's one source for them), read once the package is on the
+    path."""
+    from repro_torch.roofline import hw as hw_lib
+    return hw_lib
 
 
 def emit(obj) -> None:
@@ -277,11 +293,12 @@ def attention_peak(torch, dtype) -> float:
     """Peak rate for attention products on ``dtype`` operands.  The TPU
     kernels do them on the MXU, so the card's matching rate is its
     tensor-core rate for that type (bf16, or TF32 for f32)."""
-    return PEAK_BF16_OPS if dtype == torch.bfloat16 else PEAK_TF32_OPS
+    return (hw().PEAK_FLOPS_BF16 if dtype == torch.bfloat16
+            else hw().PEAK_FLOPS_TF32)
 
 
 def bound_ms(n_bytes: float, n_ops: float, peak_ops: float):
-    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_bytes = n_bytes / hw().HBM_BW
     t_ops = n_ops / peak_ops
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -385,7 +402,7 @@ def k1_times(torch, timer, ops, args) -> dict:
         return acc[:m].to(torch.float32) * (a_scale * w_scale) + bias
 
     n_bytes = m * k * 4 + k * n + 2 * n * 4 + m * n * 4
-    b_ms, b_by = bound_ms(n_bytes, 2.0 * m * k * n, PEAK_INT8_OPS)
+    b_ms, b_by = bound_ms(n_bytes, 2.0 * m * k * n, hw().PEAK_FLOPS_INT8)
     return {"config": autotune.cim_matmul_config(
                 m, n, k, sm_count("cuda"))._asdict(),
             "plain_ms": timer.ms(lambda: ops.cim_matmul_plain(*args),
@@ -662,7 +679,7 @@ def check_merge(torch, timer, ops, gen):
     ms = timer.ms(lambda: ops.merge_splits_kernel(acc, m, l))
     plain_ms = timer.ms(lambda: ops.merge_splits(acc, m, l))
     n_bytes = (acc.numel() + m.numel() + l.numel() + b * kvh * g * d) * 4
-    b_ms, b_by = bound_ms(n_bytes, 3.0 * acc.numel(), PEAK_F32_OPS)
+    b_ms, b_by = bound_ms(n_bytes, 3.0 * acc.numel(), hw().PEAK_FLOPS_F32)
     return {"name": "merge_splits", "route": "cuda",
             "source": "src/repro_torch/csrc/paged_attention.cu",
             "replaces": "src/repro/kernels/paged_attention/ops.py:44 "
@@ -902,7 +919,7 @@ def check_k4(torch, timer, ops, gen):
             bits = ((a.view(torch.uint8) >> 7) & 1).view(torch.int8)
             library_ms = timer.ms(lambda: torch._int_mm(bits, w))
         b_ms, b_by = bound_ms(m * k + k * n + m * n * 4, 2.0 * m * k * n,
-                              PEAK_INT8_OPS)
+                              hw().PEAK_FLOPS_INT8)
         rows.append({"M": m, "K": k, "N": n,
                      "config": autotune.cim_matmul_config(
                          m, n, k, sm_count("cuda"))._asdict(),
@@ -1078,7 +1095,8 @@ def check_k5(torch, timer, ops, gen):
         del stacked
         n_bytes = (m * kp + sum(t[1].numel() + t[2].numel() * 4
                                 for t in tiles) + 81 * 8 + 16 + m * n * 4)
-        b_ms, b_by = bound_ms(n_bytes, 2.0 * 64 * m * kp * n, PEAK_INT8_OPS)
+        b_ms, b_by = bound_ms(n_bytes, 2.0 * 64 * m * kp * n,
+                              hw().PEAK_FLOPS_INT8)
         rows.append({"M": m, "K": k, "N": n, "tiles": len(tiles), "ms": ms,
                      "plain_ms": plain_ms, "bmm_library_ms": bmm_ms,
                      "int8_library_ms": int8_ms, "bound_ms": b_ms,
@@ -3316,6 +3334,259 @@ def mesh_train_check(torch, device, cfg=None, batch_shape=TRAIN_BATCH
 # The VGG-8 deployment path
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# The dryrun phase: the production traces and their counts against the card
+# ---------------------------------------------------------------------------
+
+# (arch, shape, quant, layers kept (0: all)) traced on the card's path
+# over a fake 256-rank group.  granite-moe's train step is cut to 12 of
+# its 24 layers: its trace costs ~3 s a layer on the card's host, and the
+# whole cell (the sweep's, PERF.md) would take the phase past its 90 s.
+DRYRUN_CELLS = (("qwen3-8b", "decode_32k", "w8a8", 0),
+                ("granite-moe-1b-a400m", "train_4k", "none", 12))
+# The JAX package's dry-run keys (``train`` cells add ``microbatches``);
+# the port adds ``port``.
+DRYRUN_KEYS = {"arch", "shape", "quant", "params", "active_params",
+               "seq_len", "global_batch", "kind", "mesh", "kv_quant",
+               "status", "lower_s", "compile_s", "n_chips",
+               "flops_per_device", "traffic_bytes_per_device",
+               "unknown_trip_loops", "top_ops", "xla_cost_flops",
+               "xla_cost_bytes", "memory", "collectives", "port"}
+# (kind, batch, KV length or prompt) of the counts held against a real step.
+DRYRUN_CHECKS = (("decode", 8, 4096), ("prefill", 4, 2048))
+# A dry-run child: ``launch.dryrun``'s CLI (argv[2:]) with the configs cut
+# to the first argv[1] layers when argv[1] > 0 (widths unchanged).
+DRYRUN_CHILD = """
+import dataclasses, sys
+from repro_torch import configs
+from repro_torch.launch import dryrun
+layers = int(sys.argv[1])
+if layers:
+    get = configs.get_config
+    configs.get_config = lambda arch: dataclasses.replace(get(arch),
+                                                          n_layers=layers)
+dryrun.main(sys.argv[2:])
+"""
+DRYRUN_MEM_REL, DRYRUN_MEM_ABS = 0.05, 64 * 2**20
+
+
+def dryrun_children(src: str, out_dir: str) -> list:
+    """Start one ``launch.dryrun`` process per DRYRUN_CELLS cell (each
+    holds its own fake group), all at once, their output in files under
+    ``out_dir`` (a pipe left unread while the card check runs could
+    fill)."""
+    env = dict(os.environ, PYTHONPATH=src)
+    procs = []
+    for arch, shape, quant, layers in DRYRUN_CELLS:
+        cmd = [sys.executable, "-c", DRYRUN_CHILD, str(layers), "--arch",
+               arch, "--shape", shape, "--mesh", "single", "--quant", quant,
+               "--device", "cuda", "--out", out_dir]
+        log = pathlib.Path(out_dir) / f"{arch}__{shape}.log"
+        with open(log, "w") as f:
+            procs.append(((arch, shape, quant, layers), time.perf_counter(),
+                          subprocess.Popen(cmd, env=env, cwd=ROOT, text=True,
+                                           stdout=f,
+                                           stderr=subprocess.STDOUT)))
+    return procs
+
+
+def dryrun_cell_summary(res: dict, seconds: float, layers: int) -> dict:
+    k1 = res.get("port", {}).get("kernels", {}).get("cim_matmul", {})
+    return {"arch": res["arch"], "shape": res["shape"],
+            "quant": res["quant"], "status": res["status"],
+            "layers": layers or "all",
+            "seconds": seconds, "lower_s": res.get("lower_s"),
+            "compile_s": res.get("compile_s"),
+            "flops_per_device": res.get("flops_per_device"),
+            "traffic_bytes_per_device": res.get("traffic_bytes_per_device"),
+            "memory": res.get("memory"),
+            "collective_wire_bytes": sum(
+                c["wire_bytes"] for c in res.get("collectives", {}).values()),
+            "microbatches": res.get("microbatches"),
+            "k1_records": k1.get("records", 0)}
+
+
+def dryrun_card_check(torch, cfg, params, plan, kind, batch, length,
+                      cim_ops, device="cuda") -> tuple:
+    """One cell of the serving model on the card, traced on fake CUDA
+    tensors and run for real under the same counter.  Returns (line,
+    failures).  On ``device="cpu"`` (a rehearsal) the memory gate reads
+    the real run's live bytes instead of the CUDA allocator."""
+    on_card = device == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer
+    from repro_torch.roofline import analysis
+
+    def inputs(dev):
+        if kind == "decode":
+            caches = transformer.init_caches(cfg, batch, length,
+                                             torch.bfloat16, device=dev)
+            tokens = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
+            return ({"tokens": tokens}, caches)
+        return ({"tokens": torch.zeros((batch, length), dtype=torch.int32,
+                                       device=dev)},)
+
+    step = (dryrun.decode_step_fn(cfg, plan, None) if kind == "decode"
+            else dryrun.prefill_step_fn(cfg, length, plan, None))
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        fparams = dryrun.fake_params(cfg, torch.device(device), plan, True)
+        fargs = inputs(device)
+        fake = dryrun.trace(lambda: step(fparams, *fargs))
+    del fparams, fargs
+    args = inputs(device)
+    step(params, *args)                         # warm-up (cuBLAS, kernels)
+    sync()
+    del args
+    args = inputs(device)
+    sync()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+    launched = cim_ops.launches
+    real = dryrun.trace(lambda: step(params, *args))
+    sync()
+    real_peak = (torch.cuda.max_memory_allocated() - before if on_card
+                 else real["temp_bytes"])
+    k1_launches = cim_ops.launches - launched
+    del real["out"], args
+    times = []
+    for _ in range(3):
+        args = inputs(device)
+        sync()
+        t0 = time.perf_counter()
+        out = step(params, *args)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+        del out, args
+    step_ms = sorted(times)[1]
+    agg = fake["agg"]
+    terms = analysis.roofline_terms(
+        {"n_chips": 1, "flops_per_device": agg["flops"],
+         "traffic_bytes_per_device": agg["traffic_bytes"],
+         "collectives": agg["collectives"]}, model_flops=0.0, int8=True)
+    bound_ms = max(terms.compute_s, terms.memory_s) * 1e3
+    fk1 = agg["kernels"].get("cim_matmul", {}).get("records", 0)
+    rk1 = real["agg"]["kernels"].get("cim_matmul", {}).get("records", 0)
+    line = {"kind": kind, "batch": batch, "length": length,
+            "layers": cfg.n_layers,
+            "flops": {"fake": agg["flops"], "real": real["agg"]["flops"]},
+            "traffic_bytes": {"fake": agg["traffic_bytes"],
+                              "real": real["agg"]["traffic_bytes"]},
+            "k1_records": {"fake": fk1, "real": rk1},
+            "k1_launches": k1_launches,
+            "temp_bytes": {"fake": fake["temp_bytes"],
+                           "real_live": real["temp_bytes"],
+                           "real_max_allocated": real_peak},
+            "trace_s": fake["seconds"], "step_ms": step_ms,
+            "step_ms_runs": times, "bound_ms": bound_ms,
+            "bound_by": "operations" if terms.compute_s >= terms.memory_s
+            else "bytes",
+            "compute_ms": terms.compute_s * 1e3,
+            "memory_ms": terms.memory_s * 1e3,
+            "step_over_bound": step_ms / bound_ms}
+    failures = []
+    for key in ("flops", "traffic_bytes", "k1_records"):
+        if line[key]["fake"] != line[key]["real"]:
+            failures.append(f"dryrun {kind}: {key} of the real step "
+                            f"{line[key]['real']} != the trace's "
+                            f"{line[key]['fake']}")
+    if fk1 != cfg.n_layers * 7 + 1:
+        failures.append(f"dryrun {kind}: {fk1} K1 records, want "
+                        f"{cfg.n_layers * 7 + 1}")
+    if on_card and k1_launches != rk1:
+        failures.append(f"dryrun {kind}: K1 launched {k1_launches} times "
+                        f"for {rk1} records")
+    gap = abs(fake["temp_bytes"] - real_peak)
+    if gap > max(DRYRUN_MEM_REL * real_peak, DRYRUN_MEM_ABS):
+        failures.append(f"dryrun {kind}: the trace's peak "
+                        f"{fake['temp_bytes']} B is off the real step's "
+                        f"max_memory_allocated delta {real_peak} B")
+    return line, failures
+
+
+def dryrun_path(torch, cfg, cim_ops, paged_ops, *, src=str(ROOT / "src"),
+                cache=None):
+    """The port's dry run on the card.
+
+    1. ``launch.dryrun --device cuda`` traces DRYRUN_CELLS on rank 0 of
+       the 16 x 16 production mesh over a fake 256-rank group (fake CUDA
+       tensors, nothing allocated), one child process per cell, all
+       started here at once: each writes JAX's keys (and ``port``), and
+       qwen3-8b's decode records K1 on all 36 x 7 projections and the
+       head.
+    2. Meanwhile, here: the serving phases' qwen3-8b (``cfg``, all its
+       layers, frozen under w8a8_kernel) at DRYRUN_CHECKS, one card,
+       traced on fake tensors and run for real under the same counter:
+       flops, traffic bytes and K1 records equal, K1's launches equal its
+       records, the trace's peak within 5 % (or 64 MiB) of the real
+       step's ``max_memory_allocated`` delta; the step's ms beside the
+       roofline bound.
+    Then the children are waited for (killed if they outlive the phase).
+
+    Returns (result, launches, failures)."""
+    import tempfile
+    failures = []
+    result = {"phase": "dryrun", "arch": cfg.name,
+              "total_memory": torch.cuda.get_device_properties(0)
+              .total_memory}
+    with tempfile.TemporaryDirectory() as out_dir:
+        procs = dryrun_children(src, out_dir)
+        try:
+            params, plan, _ = frozen_params(torch, cfg, "cuda", cache)
+            reset_launches(cim_ops, paged_ops)
+            checks = []
+            for kind, batch, length in DRYRUN_CHECKS:
+                line, fails = dryrun_card_check(torch, cfg, params, plan,
+                                                kind, batch, length, cim_ops)
+                checks.append(line)
+                failures += fails
+            result["card_check"] = checks
+            launches = read_launches(cim_ops, paged_ops)
+            cells = []
+            for (arch, shape, quant, layers), t0, proc in procs:
+                proc.wait(timeout=600)
+                seconds = time.perf_counter() - t0
+                out = (pathlib.Path(out_dir) / f"{arch}__{shape}.log"
+                       ).read_text()
+                path = pathlib.Path(out_dir) / \
+                    f"{arch}__{shape}__single__{quant}.json"
+                if proc.returncode != 0 or not path.exists():
+                    failures.append(f"dryrun: {arch} x {shape} failed "
+                                    f"(exit {proc.returncode}): "
+                                    f"{out[-1500:]}")
+                    continue
+                res = json.loads(path.read_text())
+                cell = dryrun_cell_summary(res, seconds, layers)
+                cell["line"] = next((ln for ln in out.splitlines()
+                                     if ln.startswith("[dryrun]")), None)
+                cells.append(cell)
+                want = DRYRUN_KEYS | ({"microbatches"}
+                                      if res["kind"] == "train" else set())
+                if set(res) != want:
+                    failures.append(f"dryrun: {arch} x {shape} keys "
+                                    f"{sorted(set(res) ^ want)} differ "
+                                    "from JAX's")
+                if arch == "qwen3-8b" and cell["k1_records"] != 36 * 7 + 1:
+                    failures.append(f"dryrun: qwen3-8b decode recorded "
+                                    f"{cell['k1_records']} K1 calls, want "
+                                    f"{36 * 7 + 1}")
+            result["production"] = cells
+        finally:
+            for _, _, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    result["ok"] = not failures
+    return result, launches, failures
+
+
 def vgg8_path(torch, cim_ops, bs_ops, caat_ops, *, device="cuda", cfg=None,
               n_calib: int = 64, n_images: int = 64):
     """The paper's VGG-8 deployment (repro_torch.launch.fig10) at ``cfg``'s
@@ -3598,6 +3869,8 @@ def main() -> int:
                                              paged_ops, cache=served)),
             ("distributed", lambda: distributed_path(
                 torch, qwen, cim_ops, paged_ops, cache=served)),
+            ("dryrun", lambda: dryrun_path(torch, qwen, cim_ops, paged_ops,
+                                           src=args.src, cache=served)),
             ("families", lambda: families_path(
                 torch, cim_ops, paged_ops,
                 runs=[r for r in FAMILY_RUNS

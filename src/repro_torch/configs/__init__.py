@@ -69,3 +69,64 @@ def reduced_config(arch_id: str, *, n_layers: int = 2, d_model: int = 64,
     if cfg.mrope_sections is not None:
         kw["mrope_sections"] = (4, 2, 2)   # head_dim/2 = 8 in reduced form
     return dataclasses.replace(cfg, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Dry-run inputs (empty tensors: made under the caller's FakeTensorMode
+# they allocate nothing)
+# ---------------------------------------------------------------------------
+
+def cell_is_runnable(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """(runnable?, reason).  long_500k needs sub-quadratic attention."""
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, ("skip: pure full-attention arch at 524288 context "
+                       "(quadratic prefill / unbounded KV) — see DESIGN.md §5")
+    return True, ""
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, *,
+                device="cpu") -> dict:
+    """The global batch of a train/prefill step as empty tensors (the
+    JAX package's ShapeDtypeStruct batch: int32 tokens and labels, bf16
+    embeddings and frames, M-RoPE's [3, B, S] positions)."""
+    import torch
+    b, s = shape.global_batch, shape.seq_len
+    i32, bf16 = torch.int32, torch.bfloat16
+    batch: dict = {}
+    if cfg.frontend == "vision_stub":
+        batch["embeds"] = torch.empty((b, s, cfg.d_model), dtype=bf16,
+                                      device=device)
+        batch["positions"] = torch.empty((3, b, s), dtype=i32, device=device)
+    else:
+        batch["tokens"] = torch.empty((b, s), dtype=i32, device=device)
+    if cfg.frontend == "audio_stub":
+        batch["frames"] = torch.empty((b, s, cfg.d_model), dtype=bf16,
+                                      device=device)
+    if shape.kind == "train":
+        batch["labels"] = torch.empty((b, s), dtype=i32, device=device)
+    return batch
+
+
+def decode_input_specs(cfg: ModelConfig, shape: ShapeConfig, *,
+                       batch: int | None = None, device="cpu") -> dict:
+    """``{"batch", "caches"}`` of one decode step at a KV length of
+    ``shape.seq_len``: int32 tokens [B, 1] (and positions [3, B, 1]) and
+    ``transformer.init_caches``' bf16 caches (whisper's cross K/V over
+    ``seq_len`` frames).  ``batch`` rows instead of the shape's global
+    batch lay the caches out as the port's mesh serve does: each rank
+    holds its rows' whole caches."""
+    import torch
+
+    from repro_torch.models import transformer
+    b = shape.global_batch if batch is None else batch
+    s = shape.seq_len
+    i32, bf16 = torch.int32, torch.bfloat16
+    out: dict = {"tokens": torch.empty((b, 1), dtype=i32, device=device)}
+    if cfg.frontend == "vision_stub":
+        out["positions"] = torch.empty((3, b, 1), dtype=i32, device=device)
+    enc_out = None
+    if cfg.arch_type == "encdec":
+        enc_out = torch.empty((b, s, cfg.d_model), dtype=bf16, device=device)
+    caches = transformer.init_caches(cfg, b, s, bf16, device=device,
+                                     enc_out=enc_out)
+    return {"batch": out, "caches": caches}

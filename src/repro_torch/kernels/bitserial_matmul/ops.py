@@ -5,7 +5,10 @@ two's-complement activation bit, then a digital shift-add.
 :func:`bitplane_matmul` runs one plane through :func:`bitplane_matmul_kernel`
 (the CUDA kernel ``csrc/bitplane_matmul.cu``) on a CUDA tensor, or through
 :func:`bitplane_matmul_plain` (the same function in plain PyTorch) on a CPU
-tensor; a CUDA tensor never takes the plain path.  Which of the file's
+tensor; a CUDA tensor never takes the plain path.  A fake tensor
+(``FakeTensorMode``) takes the shape-only arm (an empty int32 output, no
+launch), and every plane records its work into a running
+``roofline.op_count`` counter, whichever arm runs.  Which of the file's
 two kernels runs is ``autotune.cim_matmul_config`` of the shape (the
 wgmma kernel where K and N are multiples of 16, else the byte-masked
 one); both mask ragged M/N/K themselves, so nothing is padded.
@@ -19,9 +22,11 @@ import ctypes
 import functools
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.device import sm_count
 from repro_torch.kernels import autotune, build
+from repro_torch.roofline import op_count
 
 # Launches of the CUDA kernel (plain integer; reset it to 0 before a run).
 launches = 0
@@ -94,10 +99,23 @@ def bitplane_matmul_kernel(a_q: torch.Tensor, w_q: torch.Tensor,
     return out
 
 
+def _work(a_q, w_q, plane):
+    """(int8 operations, compulsory bytes, tag) of one plane: A and W
+    read once, the int32 output written once."""
+    (m, k), n = a_q.shape, w_q.shape[1]
+    return 2.0 * m * k * n, m * k + k * n + 4 * m * n, \
+        f"s8[{m},{k}]x[{k},{n}]"
+
+
+def _fake(a_q, w_q, plane):
+    return a_q.new_empty((a_q.shape[0], w_q.shape[1]), dtype=torch.int32)
+
+
+@op_count.shape_only("bitplane_matmul", _work, _fake)
 def bitplane_matmul(a_q: torch.Tensor, w_q: torch.Tensor, plane: int
                     ) -> torch.Tensor:
     """One bit-plane pass: the kernel on a CUDA tensor, the plain version
-    on a CPU tensor."""
+    on a CPU tensor, the shape-only arm on a fake tensor."""
     if a_q.device.type == "cpu":
         return bitplane_matmul_plain(a_q, w_q, plane)
     return bitplane_matmul_kernel(a_q, w_q, plane)
@@ -111,7 +129,8 @@ def bitserial_matmul(a_q, w_q, a_scale, w_scale, bias=None, *,
     k, n = w_q.shape
     lead = a_q.shape[:-1]
     a2 = a_q.reshape(-1, k)
-    if a2.data_ptr() % 16 or not a2.is_contiguous():
+    if not a2.is_contiguous() or (not isinstance(a2, FakeTensor)
+                                  and a2.data_ptr() % 16):
         a2 = a2.clone(memory_format=torch.contiguous_format)
     acc = torch.zeros((a2.shape[0], n), dtype=torch.float32,
                       device=a_q.device)

@@ -5,8 +5,10 @@
 + digital accumulation) but runs each row tile through :func:`caat_mac`:
 the CUDA kernel ``csrc/caat_mac.cu`` on a CUDA tensor, its plain PyTorch
 version :func:`caat_mac_plain` on a CPU tensor (a CUDA tensor never takes
-the plain path).  The ADC is the ideal quantizer here (no INL), as in the
-reference.
+the plain path; a fake tensor (``FakeTensorMode``) takes the shape-only
+arm: an empty int32 output, no launch).  Every tile records its work
+into a running ``roofline.op_count`` counter, whichever arm runs.  The
+ADC is the ideal quantizer here (no INL), as in the reference.
 
 One row tile of R rows computes, from int8 activations ``a [B, R]`` and
 the weights' +/-1 bit planes ``w_i [R, N]``,
@@ -39,6 +41,7 @@ import torch
 
 from repro_torch.core import caat as caat_lib
 from repro_torch.kernels import build
+from repro_torch.roofline import op_count
 
 # Launches of the CUDA kernel (plain integer; reset it to 0 before a run).
 launches = 0
@@ -171,9 +174,25 @@ def caat_mac_kernel(a: torch.Tensor, w_planes: torch.Tensor,
     return out
 
 
+def _work(a, w_planes, w_sum, w_eff, scalars):
+    """(int8 operations, compulsory bytes, tag) of one row tile: the 8 x
+    8 +/-1 plane products of [B, R] x [R, N] on the int8 tensor cores;
+    every operand read once, the int32 codes written once."""
+    b, r = a.shape
+    n = w_sum.shape[1]
+    n_bytes = (b * r + w_planes.numel() + 4 * w_sum.numel()
+               + 8 * w_eff.numel() + 4 * scalars.numel() + 4 * b * n)
+    return 2.0 * 64 * b * r * n, n_bytes, f"s8[{b},{r}]x[{r},{n}]x64"
+
+
+def _fake(a, w_planes, w_sum, w_eff, scalars):
+    return a.new_empty((a.shape[0], w_sum.shape[1]), dtype=torch.int32)
+
+
+@op_count.shape_only("caat_mac", _work, _fake)
 def caat_mac(a, w_planes, w_sum, w_eff, scalars) -> torch.Tensor:
     """One row tile: the kernel on a CUDA tensor, the plain version on a
-    CPU tensor."""
+    CPU tensor, the shape-only arm on a fake tensor."""
     if a.device.type == "cpu":
         return caat_mac_plain(a, w_planes, w_sum, w_eff, scalars)
     return caat_mac_kernel(a, w_planes, w_sum, w_eff, scalars)

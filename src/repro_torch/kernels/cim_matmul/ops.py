@@ -6,7 +6,11 @@ in the kernel prologue), bias and the optional int8 requant epilogue, then
 runs :func:`cim_matmul_kernel` (the CUDA kernel ``csrc/cim_matmul.cu``) on
 a CUDA tensor or :func:`cim_matmul_plain` (the same function in plain
 PyTorch) on a CPU tensor.  A CUDA tensor never takes the plain path: the
-kernel launches or the wrapper raises.  Every shape is taken.  Which of
+kernel launches or the wrapper raises.  A fake tensor (``FakeTensorMode``,
+the dry run) takes the shape-only arm: an empty output of the kernel's
+shape and dtype (and the int8 scratch the kernel allocates), no launch;
+every call records its work into a running ``roofline.op_count`` counter,
+whichever arm runs.  Every shape is taken.  Which of
 the file's two kernels runs, with which tile and split, is
 ``autotune.cim_matmul_config`` of the shape: the wgmma kernel where K and
 N are multiples of 16 (an f32 input is then quantized once per launch
@@ -22,6 +26,7 @@ import torch
 
 from repro_torch.device import sm_count
 from repro_torch.kernels import autotune, build
+from repro_torch.roofline import op_count
 
 # Launches of the CUDA kernel (plain integer; reset it to 0 before a run).
 launches = 0
@@ -79,6 +84,49 @@ def _wgmma_fn():
     return fn
 
 
+def _work(a, w_q, a_scale=None, w_scale=None, bias=None, out_scale=None,
+          *, requant=None, **kw):
+    """(int8 operations, compulsory bytes, tag) of one K1 call: a [.., K]
+    (int8, or f32 as the wrapper passes float inputs) read once, w_q, the
+    scales and the bias read once, the output written once."""
+    k, n = w_q.shape
+    m = a.numel() // max(k, 1)
+    if requant is None:
+        requant = out_scale is not None
+    a_b = 1 if a.dtype == torch.int8 else 4
+    n_bytes = m * k * a_b + k * n + 8 * n + 8 + m * n * (1 if requant
+                                                         else 4)
+    return 2.0 * m * k * n, n_bytes, f"s8[{m},{k}]x[{k},{n}]"
+
+
+def _kernel_fake(a, w_q, a_scale, w_scale, bias, out_scale, *,
+                 relu: bool = False, requant: bool = False) -> torch.Tensor:
+    """The kernel's output for a fake ``a`` [M, K], with the int8 scratch
+    the wgmma path allocates for an f32 input (freed at once)."""
+    k, n = w_q.shape
+    if a.dtype == torch.float32 and k % 16 == 0 and n % 16 == 0:
+        a.new_empty((a.shape[0], k), dtype=torch.int8)
+    return a.new_empty((a.shape[0], n),
+                       dtype=torch.int8 if requant else torch.float32)
+
+
+def _fake(a_q, w_q, a_scale, w_scale, bias=None, out_scale=None, *,
+          relu: bool = False, requant: bool | None = None) -> torch.Tensor:
+    """:func:`cim_matmul` on a fake ``a_q``: the wrapper's own f32 copy
+    and contiguous copy of the input, then the kernel's output."""
+    if requant is None:
+        requant = out_scale is not None
+    k, n = w_q.shape
+    if a_q.dtype != torch.int8:
+        a_q = a_q.to(torch.float32)
+    a2 = a_q.reshape(-1, k)
+    if not a2.is_contiguous():
+        a2 = a2.clone(memory_format=torch.contiguous_format)
+    return _kernel_fake(a2, w_q, None, None, None, None,
+                        requant=requant).reshape(*a_q.shape[:-1], n)
+
+
+@op_count.shape_only("cim_matmul", _work, _kernel_fake)
 def cim_matmul_kernel(a, w_q, a_scale, w_scale, bias, out_scale, *,
                       relu: bool = False, requant: bool = False
                       ) -> torch.Tensor:
@@ -135,6 +183,7 @@ def cim_matmul_kernel(a, w_q, a_scale, w_scale, bias, out_scale, *,
     return out
 
 
+@op_count.shape_only("cim_matmul", _work, _fake)
 def cim_matmul(a_q, w_q, a_scale, w_scale, bias=None, out_scale=None, *,
                relu: bool = False, requant: bool | None = None
                ) -> torch.Tensor:

@@ -9,7 +9,11 @@ int8 :class:`~repro_torch.core.quant.QTensor` pages (scale
 ``csrc/flash_prefill.cu``) on CUDA tensors or its plain PyTorch twin on CPU
 tensors.  A CUDA tensor never takes the plain path.  The decode
 partials' combine is ``merge_splits`` on the CPU and its one-launch CUDA
-form ``merge_splits_kernel`` on the card.
+form ``merge_splits_kernel`` on the card.  A fake tensor
+(``FakeTensorMode``) takes the shape-only arm: an empty output of the
+kernel's shape and dtype, no launch (``paged_prefill`` returns the pages
+as they are).  Every call records its work into a running
+``roofline.op_count`` counter, whichever arm runs.
 
 Unlike the JAX package, the pool is updated in place: ``paged_prefill``
 writes the chunk's K/V into the given pages and returns the same page
@@ -28,6 +32,7 @@ import torch
 from repro_torch.core import quant
 from repro_torch.device import sm_count
 from repro_torch.kernels import autotune, build
+from repro_torch.roofline import op_count
 
 NEG_INF = -1e30
 
@@ -182,6 +187,18 @@ def _merge_fn():
     return fn
 
 
+def _merge_work(acc, m, l):
+    b, kvh, ns, g, d = acc.shape
+    return 0.0, 4 * (acc.numel() + m.numel() + l.numel() + b * kvh * g * d), \
+        f"f32[{b},{kvh},{ns},{g},{d}]"
+
+
+def _merge_fake(acc, m, l):
+    b, kvh, _, g, d = acc.shape
+    return acc.new_empty((b, kvh, g, d), dtype=torch.float32)
+
+
+@op_count.shape_only("merge_splits", _merge_work, _merge_fake)
 def merge_splits_kernel(acc, m, l):
     """:func:`merge_splits` as one CUDA launch (same arguments and
     result)."""
@@ -251,6 +268,36 @@ def paged_attention_kernel(q, k_pages, v_pages, k_scale, v_scale,
     return acc, m, l
 
 
+def _page_bytes(pages, n_pages: int) -> int:
+    """Bytes of ``n_pages`` pool pages (codes and scales)."""
+    codes, scale = _split_pages(pages)
+    per = codes[0].numel() * codes.element_size()
+    if scale is not None:
+        per += scale[0].numel() * scale.element_size()
+    return n_pages * per
+
+
+def _decode_work(q, k_pages, v_pages, block_tables, n_valid, **kw):
+    """q.k and p.v over every table slot of every row (the shape's
+    capacity), each referenced page read once, q, tables and lengths read,
+    the output written."""
+    b, _, h, d = q.shape
+    bs = _split_pages(k_pages)[0].shape[1]
+    keys = block_tables.shape[1] * bs
+    pages = b * block_tables.shape[1]
+    n_bytes = (2 * q.numel() * q.element_size()
+               + _page_bytes(k_pages, pages) + _page_bytes(v_pages, pages)
+               + 4 * (block_tables.numel() + n_valid.numel()))
+    return 4.0 * b * h * d * keys, n_bytes, f"[{b},1,{h},{d}]x{keys}"
+
+
+def _decode_fake(q, *args, **kwargs):
+    if q.shape[1] != 1:
+        raise ValueError("paged flash decoding serves single-token queries")
+    return torch.empty_like(q)
+
+
+@op_count.shape_only("paged_attention", _decode_work, _decode_fake)
 def paged_attention(q, k_pages, v_pages, block_tables, n_valid, *,
                     kv_splits: int | None = None,
                     split_pages: int | None = None):
@@ -449,6 +496,31 @@ def flash_prefill_kernel(q, k_new, v_new, k_pages, v_pages, k_scale,
     return out
 
 
+def _prefill_work(q, k_new, v_new, k_pages, v_pages, block_tables, pos,
+                  n_tok, write_mask=None, *, has_past: bool = True):
+    """q.k and p.v of every chunk query over the table's past slots and
+    the whole chunk (the shape's capacity); q and the chunk's K/V and
+    each referenced page read once, the chunk's pages and the output
+    written."""
+    b, c, h, d = q.shape
+    bs = _split_pages(k_pages)[0].shape[1]
+    w = block_tables.shape[1]
+    keys = (w * bs if has_past else 0) + c
+    chunk_pages = b * (c // bs)
+    past = b * w if has_past else 0
+    n_bytes = (2 * q.numel() * q.element_size()
+               + 2 * k_new.numel() * k_new.element_size()
+               + _page_bytes(k_pages, past + chunk_pages)
+               + _page_bytes(v_pages, past + chunk_pages)
+               + 4 * (block_tables.numel() + 3 * b))
+    return 4.0 * b * c * h * d * keys, n_bytes, f"[{b},{c},{h},{d}]x{keys}"
+
+
+def _prefill_fake(q, k_new, v_new, k_pages, v_pages, *args, **kwargs):
+    return torch.empty_like(q), k_pages, v_pages
+
+
+@op_count.shape_only("flash_prefill", _prefill_work, _prefill_fake)
 def paged_prefill(q, k_new, v_new, k_pages, v_pages, block_tables, pos,
                   n_tok, write_mask=None, *, has_past: bool = True):
     """Fused causal-chunk paged prefill: attention over (past pool pages +

@@ -212,3 +212,27 @@ def spawn(fn, n: int, *, device="cpu", args=(), timeout_s: float = 300.0,
                     p.kill()
                     p.join()
     return [got[r] for r in range(n)]
+
+
+def init_fake_group(world_size: int) -> None:
+    """Start the default process group as rank 0 of ``world_size`` ranks
+    of PyTorch's fake backend: collectives complete at once and move
+    nothing, so one process traces what rank 0 of a production mesh runs
+    (the dry run).  Raises if a group is already running (a process holds
+    one default group)."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already running; the fake "
+                           "group needs a process of its own")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+
+
+def make_fake_production_mesh(*, multi_pod: bool = False, device="cuda"):
+    """The production mesh (16 x 16, or 2 x 16 x 16) over a fake group of
+    256 or 512 ranks that this call starts, as a DeviceMesh on
+    ``device``'s type (the counterpart of the JAX package's
+    ``make_production_mesh`` over 512 forced host devices)."""
+    shape, axes = production_shape(multi_pod=multi_pod)
+    init_fake_group(math.prod(shape))
+    return make_mesh(shape, axes, device)

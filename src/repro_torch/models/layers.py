@@ -18,6 +18,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.core import backend as backend_lib
 from repro_torch.core import quant
@@ -100,17 +101,31 @@ def layernorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 
 @functools.cache
-def _rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
-    """``1 / theta ** (arange(0, head_dim, 2) / head_dim)`` on ``device``,
+def _rope_host(head_dim: int, theta: float) -> np.ndarray:
+    """``1 / theta ** (arange(0, head_dim, 2) / head_dim)`` on the host,
     bit for bit as the JAX package computes it: the exponents in f32, the
-    power taken in float64 on the host and rounded once to f32 (XLA's f32
-    power is correctly rounded there; torch's f32 ``pow`` is one ulp off
-    on some inputs), then the f32 reciprocal.  Made once per (head_dim,
-    theta, device)."""
+    power taken in float64 and rounded once to f32 (XLA's f32 power is
+    correctly rounded there; torch's f32 ``pow`` is one ulp off on some
+    inputs), then the f32 reciprocal."""
     exps = np.arange(0, head_dim, 2, dtype=np.float32) / np.float32(head_dim)
     power = (np.float64(np.float32(theta)) ** exps.astype(np.float64)
              ).astype(np.float32)
-    return torch.from_numpy(np.float32(1.0) / power).to(device)
+    return np.float32(1.0) / power
+
+
+@functools.cache
+def _rope_on(head_dim: int, theta: float, device) -> torch.Tensor:
+    return torch.from_numpy(_rope_host(head_dim, theta)).to(device)
+
+
+def _rope_freqs(head_dim: int, theta: float, device,
+                fake: bool = False) -> torch.Tensor:
+    """The frequencies on ``device``, made once per (head_dim, theta,
+    device); a fake trace (``FakeTensorMode``) gets a tensor of its own,
+    never cached, so no fake tensor reaches a later real step."""
+    if fake:
+        return torch.from_numpy(_rope_host(head_dim, theta)).to(device)
+    return _rope_on(head_dim, theta, device)
 
 
 def rope_angles(positions: torch.Tensor, head_dim: int, theta: float,
@@ -119,7 +134,8 @@ def rope_angles(positions: torch.Tensor, head_dim: int, theta: float,
     RoPE) or, with ``sections`` (M-RoPE), [3, B, S] t/h/w position ids:
     section *i* takes the next ``sections[i]`` frequency bands from
     position axis *i* (the sections sum to head_dim/2)."""
-    freqs = _rope_freqs(head_dim, theta, positions.device)
+    freqs = _rope_freqs(head_dim, theta, positions.device,
+                        isinstance(positions, FakeTensor))
     if sections is None:
         return positions[..., None].to(torch.float32) * freqs
     if positions.ndim != 3 or positions.shape[0] != len(sections):

@@ -210,3 +210,61 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.library("cim_matmul")
     assert list(tmp_path.iterdir()) == []
+
+
+def test_dryrun_import_starts_nothing():
+    """Importing the dry run starts no process group and sets no
+    environment variable (the JAX package's sets XLA_FLAGS at import; the
+    fake group starts in run_cell and main only)."""
+    code = (
+        "import os, sys\n"
+        "before = dict(os.environ)\n"
+        "import torch.distributed as dist\n"
+        "import repro_torch.launch.dryrun\n"
+        "import repro_torch.roofline.report\n"
+        "assert dict(os.environ) == before, set(os.environ) ^ set(before)\n"
+        "assert not dist.is_initialized()\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env={"PYTHONPATH": str(SRC),
+                                         "PATH": "/usr/bin:/bin"},
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_real_tensors_never_take_the_shape_only_arm():
+    """With a counter running (the arm's other trigger), a real tensor off
+    the CPU still goes to the kernel, which raises here, and a real CPU
+    tensor still gets its plain version's values; only a FakeTensor takes
+    the shape-only arm."""
+    from repro_torch.kernels.bitserial_matmul import ops as bs_ops
+    from repro_torch.kernels.cim_matmul import ops as cim_ops
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+    from repro_torch.roofline import op_count
+    meta = torch.device("meta")
+    with op_count.OpCounter() as c:
+        with pytest.raises(ValueError, match="CUDA"):
+            cim_ops.cim_matmul(torch.empty(2, 8, device=meta),
+                               torch.empty(8, 8, dtype=torch.int8,
+                                           device=meta),
+                               torch.tensor(0.1, device=meta),
+                               torch.ones(8, device=meta))
+        with pytest.raises(ValueError, match="CUDA"):
+            paged_ops.merge_splits_kernel(
+                *(torch.empty(1, 1, 1, 1, d, device=meta) for d in (4, 1, 1)))
+        with pytest.raises(ValueError, match="CUDA"):
+            bs_ops.bitplane_matmul(torch.empty(2, 8, dtype=torch.int8,
+                                               device=meta),
+                                   torch.empty(8, 8, dtype=torch.int8,
+                                               device=meta), 0)
+        g = torch.Generator().manual_seed(0)
+        a = torch.randn(3, 16, generator=g)
+        w = torch.randint(-128, 128, (16, 8), generator=g).to(torch.int8)
+        got = cim_ops.cim_matmul(a, w, 0.05, torch.ones(8))
+    want = cim_ops.cim_matmul_plain(a, w, torch.tensor(0.05), torch.ones(8),
+                                    torch.zeros(8), torch.tensor(1.0))
+    assert torch.equal(got, want)
+    # A call that raised records nothing; the CPU call is recorded.
+    assert c.kernels["cim_matmul"]["records"] == 1
+    assert "bitplane_matmul" not in c.kernels

@@ -754,3 +754,57 @@ def test_multimodal_generate_matches_plain(hopper, arch, monkeypatch):
     want = serve()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["decode", "prefill"])
+def test_dryrun_counts_a_real_step_alike(hopper, kind):
+    """A reduced qwen3-8b step under w8a8_kernel traced on fake CUDA
+    tensors and run on the card under the same counter: equal flops,
+    traffic bytes and K1 records, K1 launched once per record, live bytes
+    within 4 KiB (the shape-only arm allocates what the kernel does)."""
+    import dataclasses
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer
+    cfg = dataclasses.replace(configs.reduced_config("qwen3-8b"),
+                              dtype="bfloat16", kv_cache_dtype="int8")
+    plan = dryrun.QUANT_PLAN
+    if kind == "decode":
+        step = dryrun.decode_step_fn(cfg, plan, None)
+
+        def inputs():
+            return ({"tokens": torch.zeros((4, 1), dtype=torch.int32,
+                                           device="cuda")},
+                    transformer.init_caches(cfg, 4, 128, torch.bfloat16,
+                                            device="cuda"))
+    else:
+        step = dryrun.prefill_step_fn(cfg, 64, plan, None)
+
+        def inputs():
+            return ({"tokens": torch.zeros((2, 64), dtype=torch.int32,
+                                           device="cuda")},)
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        fparams = dryrun.fake_params(cfg, torch.device("cuda"), plan, True)
+        fargs = inputs()
+        fake = dryrun.trace(lambda: step(fparams, *fargs))
+    params = M.freeze_params(
+        M.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+               device="cuda"), plan=plan)
+    step(params, *inputs())
+    args = inputs()
+    torch.cuda.synchronize()
+    cim_ops.launches = 0
+    real = dryrun.trace(lambda: step(params, *args))
+    torch.cuda.synchronize()
+    for key in ("flops", "traffic_bytes", "kernels"):
+        assert real["agg"][key] == fake["agg"][key], key
+    assert real["agg"]["kernels"]["cim_matmul"]["records"] \
+        == cim_ops.launches == cfg.n_layers * 7 + 1
+    # The trace makes its own copy of the RoPE frequencies (one 512-byte
+    # block a step); the real step reads the cached one.
+    assert abs(real["temp_bytes"] - fake["temp_bytes"]) <= 4096
