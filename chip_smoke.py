@@ -72,10 +72,12 @@ Phases (each prints one JSON line; any failure exits non-zero):
                serving phases' qwen3-8b (36 layers, w8a8_kernel) through
                launch.serve.static_generate, 8 prompts of 32 tokens from
                PRNGKey(1), 16 new, greedy, without a mesh and with the
-               params laid out as DTensors by resolve_param_specs (tokens
-               equal, prefill logits bit-identical, K1 launch counts
-               equal; tok/s, decode step, distribute and localize
-               seconds); seq_parallel_decode_attention at qwen3-8b's
+               params laid out as DTensors by resolve_param_specs and
+               gathered one block at a time where the model runs it
+               (tokens equal, prefill logits bit-identical, K1 launch
+               counts equal; tok/s, decode step as the median of
+               DIST_TURNS turns, distribute seconds);
+               seq_parallel_decode_attention at qwen3-8b's
                decode shape (B 8, H 32, KVH 8, D 128, S 4096, 3001 valid)
                within 1e-5 of attend_decode; compressed_psum on a 16M
                gradient equal to its plain codec; pipeline_forward with
@@ -89,13 +91,19 @@ Phases (each prints one JSON line; any failure exits non-zero):
                in its 90 s) traced on fake CUDA tensors on rank 0 of the
                16 x 16 production mesh over a fake 256-rank group, one
                child process each, both started at the phase's start (JAX's
-               keys; K1 recorded 36 x 7 + 1 times per decode step); while
+               keys; K1 recorded 36 x 7 + 1 times per decode step; a
+               decode cell's argument bytes, its caches split over
+               sequence, equal to JAX's layout's, printed beside the
+               constant figures of the whole-sequence layout); while
                they run, the serving phases' qwen3-8b at decode 8 x 4096
-               and prefill 4 x 2048 on the card, traced and run for real
-               under one counter: flops, traffic and K1 records equal, K1's
-               launches equal its records, the trace's peak within 5 % (or
-               64 MiB) of the real step's max_memory_allocated delta; step
-               ms beside the roofline bound (repro_torch.roofline).
+               and prefill 4 x 2048 on the card through the mesh path on
+               an NCCL group of one rank (params gathered per block, the
+               decode caches split by cache_specs), traced and run for
+               real under one counter: flops, traffic and K1 records
+               equal, K1's launches equal its records, the trace's peak
+               within 5 % (or 64 MiB) of the real step's
+               max_memory_allocated delta; step ms beside the roofline
+               bound (repro_torch.roofline).
 10. families -- the rest of the decoder-only family at published widths
                (depth cut where noted on each run's line), random weights
                from seed 0 frozen under w8a8_kernel (routers float),
@@ -185,6 +193,7 @@ import math
 import os
 import pathlib
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -3053,6 +3062,7 @@ def train_in_child(src: str) -> tuple:
 
 DIST_MESH = (1, 1)                 # ("data", "model") on the one card
 DIST_BATCH, DIST_PROMPT, DIST_NEW = 8, 32, 16
+DIST_TURNS = 3                      # timed serves, without and with the mesh
 # qwen3-8b's decode attention: B, H, KVH, D, S, valid positions.
 DIST_ATTN = (8, 32, 8, 128, 4096, 3001)
 DIST_PSUM_ELEMS = 16 * 2**20
@@ -3127,7 +3137,6 @@ def distributed_path(torch, cfg, cim_ops, paged_ops, *, device="cuda",
 
     Returns (result, K1 launches of the mesh serve, failures)."""
     from repro_torch.distributed import collectives, pipeline, sharding
-    from repro_torch.distributed import spmd
     from repro_torch.launch.serve import static_generate
     from repro_torch.models import attention as attn_lib
     from repro_torch.models import model as M
@@ -3171,14 +3180,23 @@ def distributed_path(torch, cfg, cim_ops, paged_ops, *, device="cuda",
         dparams = sharding.distribute(params, shardings)
         sync()
         result["distribute_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        spmd.localize(dparams)
-        sync()
-        result["localize_s"] = time.perf_counter() - t0
         _, pf_mesh = serve(dparams, 1, mesh)
         reset_launches(cim_ops, paged_ops)
         (tok_b, lg_b), wall_b = serve(dparams, DIST_NEW, mesh)
         launches = read_launches(cim_ops, paged_ops)
+        # A decode step is a DIST_NEW-token serve's wall less a one-token
+        # serve's, over DIST_TURNS turns without and with the mesh (one
+        # turn varies by tens of ms on the shared host); the median.
+        steps = {"no_mesh": [], "mesh": []}
+        for turn in range(DIST_TURNS):
+            for tag, p, m in (("no_mesh", params, None),
+                              ("mesh", dparams, mesh)):
+                if turn == 0:
+                    pf, wall = {"no_mesh": (pf_plain, wall_a),
+                                "mesh": (pf_mesh, wall_b)}[tag]
+                else:
+                    pf, wall = serve(p, 1, m)[1], serve(p, DIST_NEW, m)[1]
+                steps[tag].append((wall - pf) / (DIST_NEW - 1) * 1e3)
         del dparams
         total = DIST_BATCH * DIST_NEW
         result["serve"] = {
@@ -3189,9 +3207,9 @@ def distributed_path(torch, cfg, cim_ops, paged_ops, *, device="cuda",
             "wall_s": {"no_mesh": wall_a, "mesh": wall_b},
             "tok_per_s": {"no_mesh": total / wall_a, "mesh": total / wall_b},
             "prefill_s": {"no_mesh": pf_plain, "mesh": pf_mesh},
-            "decode_step_ms": {
-                "no_mesh": (wall_a - pf_plain) / (DIST_NEW - 1) * 1e3,
-                "mesh": (wall_b - pf_mesh) / (DIST_NEW - 1) * 1e3}}
+            "decode_step_ms": {tag: statistics.median(v)
+                               for tag, v in steps.items()},
+            "decode_step_ms_turns": steps}
         sv = result["serve"]
         if not sv["tokens_equal"]:
             failures.append("distributed: mesh serve tokens differ from the "
@@ -3390,8 +3408,16 @@ def dryrun_children(src: str, out_dir: str) -> list:
     return procs
 
 
+# A constant, not measured here: the decode cell's figures in the port's
+# earlier layout, its rows' caches whole over the sequence and the whole
+# model gathered (GiB; PERF.md's sweep table), printed beside this run's.
+WHOLE_SEQ_GIB_CONSTANT = {("qwen3-8b", "decode_32k", "w8a8"):
+                          {"argument": 36.10, "temp": 5.77}}
+
+
 def dryrun_cell_summary(res: dict, seconds: float, layers: int) -> dict:
     k1 = res.get("port", {}).get("kernels", {}).get("cim_matmul", {})
+    port = res.get("port", {})
     return {"arch": res["arch"], "shape": res["shape"],
             "quant": res["quant"], "status": res["status"],
             "layers": layers or "all",
@@ -3400,6 +3426,11 @@ def dryrun_cell_summary(res: dict, seconds: float, layers: int) -> dict:
             "flops_per_device": res.get("flops_per_device"),
             "traffic_bytes_per_device": res.get("traffic_bytes_per_device"),
             "memory": res.get("memory"),
+            "jax_layout_argument_bytes": port.get(
+                "jax_layout_argument_bytes"),
+            "cache_seq_shard": port.get("cache_seq_shard"),
+            "whole_seq_gib_constant": WHOLE_SEQ_GIB_CONSTANT.get(
+                (res["arch"], res["shape"], res["quant"])),
             "collective_wire_bytes": sum(
                 c["wire_bytes"] for c in res.get("collectives", {}).values()),
             "microbatches": res.get("microbatches"),
@@ -3409,9 +3440,20 @@ def dryrun_cell_summary(res: dict, seconds: float, layers: int) -> dict:
 def dryrun_card_check(torch, cfg, params, plan, kind, batch, length,
                       cim_ops, device="cuda") -> tuple:
     """One cell of the serving model on the card, traced on fake CUDA
-    tensors and run for real under the same counter.  Returns (line,
-    failures).  On ``device="cpu"`` (a rehearsal) the memory gate reads
-    the real run's live bytes instead of the CUDA allocator."""
+    tensors and run for real under the same counter, both through the
+    mesh path on a process group of one rank (``process_group``): the
+    params laid out as DTensors and gathered one block at a time, a
+    decode step's caches split as ``cache_specs`` lays them out
+    (``spmd.split_caches``; one rank holds every position).  Returns
+    (line, failures).  On ``device="cpu"`` (a rehearsal) the memory gate
+    reads the real run's live bytes instead of the CUDA allocator."""
+    with process_group(torch, device) as mesh:
+        return _dryrun_card_check(torch, cfg, params, plan, kind, batch,
+                                  length, cim_ops, device, mesh)
+
+
+def _dryrun_card_check(torch, cfg, params, plan, kind, batch, length,
+                       cim_ops, device, mesh) -> tuple:
     on_card = device == "cuda"
 
     def sync():
@@ -3420,26 +3462,33 @@ def dryrun_card_check(torch, cfg, params, plan, kind, batch, length,
 
     from torch._subclasses.fake_tensor import FakeTensorMode
 
+    from repro_torch.distributed import sharding, spmd
     from repro_torch.launch import dryrun
+    from repro_torch.models import model as M
     from repro_torch.models import transformer
     from repro_torch.roofline import analysis
 
+    shardings = sharding.resolve_param_specs(
+        M.freeze_pspec(M.pspec(cfg), plan=plan), mesh)
+
     def inputs(dev):
         if kind == "decode":
-            caches = transformer.init_caches(cfg, batch, length,
-                                             torch.bfloat16, device=dev)
+            caches = spmd.split_caches(transformer.init_caches(
+                cfg, batch, length, torch.bfloat16, device=dev), mesh, cfg)
             tokens = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
             return ({"tokens": tokens}, caches)
         return ({"tokens": torch.zeros((batch, length), dtype=torch.int32,
                                        device=dev)},)
 
-    step = (dryrun.decode_step_fn(cfg, plan, None) if kind == "decode"
-            else dryrun.prefill_step_fn(cfg, length, plan, None))
+    step = (dryrun.decode_step_fn(cfg, plan, mesh) if kind == "decode"
+            else dryrun.prefill_step_fn(cfg, length, plan, mesh))
     with FakeTensorMode(allow_non_fake_inputs=True):
-        fparams = dryrun.fake_params(cfg, torch.device(device), plan, True)
+        fparams = sharding.distribute(dryrun.fake_params(
+            cfg, torch.device(device), plan, True), shardings)
         fargs = inputs(device)
         fake = dryrun.trace(lambda: step(fparams, *fargs))
     del fparams, fargs
+    params = sharding.distribute(params, shardings)
     args = inputs(device)
     step(params, *args)                         # warm-up (cuBLAS, kernels)
     sync()
@@ -3573,6 +3622,13 @@ def dryrun_path(torch, cfg, cim_ops, paged_ops, *, src=str(ROOT / "src"),
                     failures.append(f"dryrun: {arch} x {shape} keys "
                                     f"{sorted(set(res) ^ want)} differ "
                                     "from JAX's")
+                mem = res.get("memory", {})
+                if res["kind"] == "decode" and mem.get("argument_bytes") \
+                        != cell["jax_layout_argument_bytes"]:
+                    failures.append(
+                        f"dryrun: {arch} x {shape} holds "
+                        f"{mem.get('argument_bytes')} argument bytes a rank,"
+                        f" JAX's layout {cell['jax_layout_argument_bytes']}")
                 if arch == "qwen3-8b" and cell["k1_records"] != 36 * 7 + 1:
                     failures.append(f"dryrun: qwen3-8b decode recorded "
                                     f"{cell['k1_records']} K1 calls, want "

@@ -34,16 +34,27 @@ def _partial_decode(q, k_shard, v_shard, valid_mask):
     return m, l, o
 
 
+def _reducer(group):
+    """``reduce(op, x)``: ``x`` all-reduced in place over ``group`` by
+    ``op`` ("max" or "sum"); nothing moves in a group of one."""
+    n = dist.get_world_size(group)
+    ops = {"max": dist.ReduceOp.MAX, "sum": dist.ReduceOp.SUM}
+
+    def reduce(op, x):
+        if n > 1:
+            dist.all_reduce(x, op=ops[op], group=group)
+        return x
+    return reduce
+
+
 def _combine(m, l, o, group):
     """Merge the shard partials with logsumexp weights (tiny
     collectives)."""
-    m_max = m.clone()
-    dist.all_reduce(m_max, op=dist.ReduceOp.MAX, group=group)
+    reduce = _reducer(group)
+    m_max = reduce("max", m.clone())
     corr = torch.exp(m - m_max)
-    l_sum = l * corr
-    o_sum = o * corr[..., None]
-    dist.all_reduce(l_sum, op=dist.ReduceOp.SUM, group=group)
-    dist.all_reduce(o_sum, op=dist.ReduceOp.SUM, group=group)
+    l_sum = reduce("sum", l * corr)
+    o_sum = reduce("sum", o * corr[..., None])
     return o_sum / torch.clamp_min(l_sum, 1e-30)[..., None]
 
 

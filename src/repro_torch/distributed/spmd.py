@@ -17,17 +17,32 @@ what XLA's SPMD partitioner makes of the JAX package's pjit).
   over 'model'; the expert banks (:class:`ExpertShard`) run this rank's
   experts and all-gather their outputs.
 * Reductions over the global batch (the MoE balance loss's means, the
-  loss's token count, the gradients) are all-reduced over the batch
-  axes; :func:`batch_mean` is the identity outside :func:`scope`.
+  loss's token count) are all-reduced over the batch axes, the
+  gradients reduce-scattered (below); :func:`batch_mean` is the identity
+  outside :func:`scope`.
 
-* **Memory**: :func:`localize` gathers the whole tree at once, at the
-  start of each ``static_generate`` call and each train step, so every
-  rank holds the whole model's weights at compute precision beside its
-  resting shards (and, training, the full gradients, all-reduced before
-  :func:`to_rest` keeps its shard).  The mesh splits the optimizer state
-  and the batch, not the weights' peak: a model whose weights (serving)
-  or weights and gradients (training) do not fit one card does not fit
-  this path either.
+* **Memory**: the parameters stay at rest; the model code gathers
+  them where it uses them, one block at a time (:func:`gather_block`,
+  called inside the stack loops: the embedding, the final norms and the
+  head at their one use), by :func:`localize`'s rules, and drops the
+  gathered tensors before the next block's gather.  A rank holds its
+  shards, one gathered block and its activations: JAX's layout, where
+  XLA gathers each layer's parameters inside the layer.
+* **Training** (``scope(mesh, keep_model=False)``) gathers each leaf
+  whole through :class:`Resting` leaves, a differentiable gather whose
+  backward sums the gradient over the batch axes with a reduce-scatter
+  on the leaf's data-sharded dim and keeps this rank's slice over
+  'model' without communication (activations are replicated there): the
+  train step receives gradient shards, never the full gradients.  Put
+  inside a remat region, the checkpoint keeps the resting shards and the
+  block input, and the recompute gathers again.
+* **Decode caches** may hold this rank's shards as
+  ``sharding.cache_specs`` lays them out (:func:`split_caches`): the KV
+  sequence split over 'model' (:class:`SeqShard`: the owner of a
+  position writes it, attention merges the shards' partials with the
+  flash-decode combine of ``collectives``), SSM states their heads
+  (:class:`StateShard`: a layer gathers its state, steps it and keeps
+  its shard of the new one).
 
 Outside :func:`scope` none of this runs: the model code is the
 single-device code.
@@ -45,21 +60,57 @@ from repro_torch.distributed import sharding
 
 _SCOPE: contextvars.ContextVar = contextvars.ContextVar("mesh_scope",
                                                         default=None)
+# reduce_scatter_single is the newer name of reduce_scatter_tensor.
+_reduce_scatter = getattr(dist, "reduce_scatter_single",
+                          dist.reduce_scatter_tensor)
 
 
 @contextlib.contextmanager
-def scope(mesh):
+def scope(mesh, *, keep_model: bool = True):
     """Run the model code inside on ``mesh`` (its batch reductions
-    all-reduce over the batch axes)."""
-    token = _SCOPE.set(mesh)
+    all-reduce over the batch axes); :func:`gather_block` keeps the
+    column-parallel linears' and expert banks' model shards when
+    ``keep_model`` (serving) and gathers every leaf whole otherwise
+    (training).  The scope keeps each subtree's gather plan
+    (:func:`gather_block`) for its whole life: a serving call's steps
+    reuse them."""
+    token = _SCOPE.set(_Scope(mesh, keep_model))
     try:
         yield mesh
     finally:
         _SCOPE.reset(token)
 
 
+class _Scope:
+    __slots__ = ("mesh", "keep_model", "plans")
+
+    def __init__(self, mesh, keep_model: bool):
+        self.mesh, self.keep_model = mesh, keep_model
+        # id(subtree) -> (subtree, run, its output where nothing moves)
+        self.plans: dict = {}
+
+
 def current_mesh():
-    return _SCOPE.get()
+    s = _SCOPE.get()
+    return None if s is None else s.mesh
+
+
+def bind_scope(fn):
+    """``fn`` run inside the scope that is active now, wherever it is
+    called from: a remat region's recompute runs in the backward pass,
+    on CUDA in the autograd engine's device thread, which does not see
+    the caller's context."""
+    s = _SCOPE.get()
+    if s is None:
+        return fn
+
+    def bound(*args, **kwargs):
+        token = _SCOPE.set(s)
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _SCOPE.reset(token)
+    return bound
 
 
 class ColumnShard(dict):
@@ -82,15 +133,23 @@ def _model_size(mesh) -> int:
     return mesh.shape[names.index("model")] if "model" in names else 1
 
 
-def _gathered(x: DTensor, keep_model: bool) -> torch.Tensor:
-    """``x`` replicated on every mesh dim but, with ``keep_model``,
-    'model'; as this rank's local tensor."""
+def _want(x: DTensor, keep_model: bool) -> list:
+    """The placements of ``x`` gathered: replicated on every mesh dim
+    but, with ``keep_model``, 'model'.  A mesh dim of size one holds the
+    whole tensor already: nothing moves over it."""
     mesh = x.device_mesh
     names = tuple(mesh.mesh_dim_names)
-    want = [p if (keep_model and n == "model") else Replicate()
-            for n, p in zip(names, x.placements)]
+    return [p if (keep_model and n == "model") or mesh.size(i) == 1
+            else Replicate()
+            for i, (n, p) in enumerate(zip(names, x.placements))]
+
+
+def _gathered(x: DTensor, keep_model: bool) -> torch.Tensor:
+    """``x`` in its :func:`_want` placements, as this rank's local
+    tensor."""
+    want = _want(x, keep_model)
     if list(x.placements) != want:
-        x = x.redistribute(mesh, want)
+        x = x.redistribute(x.device_mesh, want)
     return x.to_local()
 
 
@@ -105,6 +164,13 @@ def _model_shard_dim(x) -> int | None:
     return p.dim if p.is_shard() else None
 
 
+def _split(x: DTensor) -> bool:
+    """Whether the 'model' axis of ``x``'s mesh has more than one rank
+    (on one, a column-parallel linear or an expert bank holds all of
+    itself: the single-device code runs it)."""
+    return _model_size(x.device_mesh) > 1
+
+
 def _divides(x: DTensor, dim: int) -> bool:
     return x.shape[dim] % _model_size(x.device_mesh) == 0
 
@@ -112,46 +178,279 @@ def _divides(x: DTensor, dim: int) -> bool:
 _BANKS = ("gate", "up", "down")
 
 
+class Resting:
+    """A parameter leaf at rest for training: this rank's shard
+    ``local`` (a plain tensor, the leaf autograd differentiates) and the
+    layout of the DTensor it was taken from.  :func:`gather_block`
+    gathers it through :class:`_GatherRest`."""
+
+    __slots__ = ("local", "mesh", "placements", "shape", "stride")
+
+    def __init__(self, local: torch.Tensor, like: DTensor):
+        self.local = local
+        self.mesh = like.device_mesh
+        self.placements = tuple(like.placements)
+        self.shape = like.shape
+        self.stride = like.stride()
+
+
+def _chunk(x: torch.Tensor, dim: int, n: int, i: int) -> torch.Tensor:
+    """Rank ``i``'s piece of ``x`` split ``n`` ways along ``dim`` as a
+    DTensor ``Shard`` splits it (``torch.chunk``; trailing ranks of an
+    uneven split may hold nothing)."""
+    parts = torch.chunk(x, n, dim)
+    return parts[i] if i < len(parts) else x.narrow(dim, 0, 0)
+
+
+def _rest_grad(g: torch.Tensor, rest: Resting) -> torch.Tensor:
+    """A leaf's full gradient from this rank's rows -> the global
+    gradient's shard in the leaf's resting layout: over each batch axis
+    a reduce-scatter on the dim the leaf shards there (an all-reduce,
+    then this rank's piece, where the dim does not divide; an all-reduce
+    where the leaf is replicated), over 'model' this rank's piece
+    without communication (every rank of it holds the same gradient)."""
+    mesh = rest.mesh
+    batch = sharding.batch_axes(mesh)
+    for name, p in zip(mesh.mesh_dim_names, rest.placements):
+        group = mesh.get_group(name)
+        n = dist.get_world_size(group)
+        i = mesh.get_local_rank(name)
+        if name in batch and n > 1:
+            if p.is_shard() and g.shape[p.dim] % n == 0:
+                x = g.movedim(p.dim, 0).contiguous()
+                out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
+                _reduce_scatter(out, x, op=dist.ReduceOp.SUM, group=group)
+                g = out.movedim(0, p.dim)
+                continue
+            g = g.clone()
+            dist.all_reduce(g, op=dist.ReduceOp.SUM, group=group)
+        if p.is_shard():
+            g = _chunk(g, p.dim, n, i)
+    return g.contiguous()
+
+
+class _GatherRest(torch.autograd.Function):
+    """A :class:`Resting` leaf gathered whole; the backward is
+    :func:`_rest_grad`."""
+
+    @staticmethod
+    def forward(ctx, local, rest):
+        ctx.rest = rest
+        x = DTensor.from_local(local.detach(), rest.mesh, rest.placements,
+                               run_check=False, shape=rest.shape,
+                               stride=rest.stride)
+        out = _gathered(x, False)
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _rest_grad(g, ctx.rest), None
+
+
+def _leaf_plan(x, keep_model: bool):
+    """``(run, fixed)`` of one leaf: ``run(x)`` its local tensor for
+    compute (its model shard kept with ``keep_model``); ``fixed`` where
+    nothing moves (a plain tensor, or a DTensor in its :func:`_want`
+    placements already: its local tensor, a view of the resting
+    shard)."""
+    if isinstance(x, Resting):
+        return (lambda r: _GatherRest.apply(r.local, r)), False
+    if not isinstance(x, DTensor):
+        return (lambda v: v), True
+    want = _want(x, keep_model)
+    if want == list(x.placements):
+        return (lambda v: v.to_local()), True
+    return (lambda v: v.redistribute(v.device_mesh, want).to_local()), False
+
+
+def _plan(node, keep_model: bool):
+    """:func:`localize`'s walk of ``node`` worked out once: ``(run,
+    fixed)``, ``run(node)`` the node as local tensors (which leaves keep
+    their model shard and their placements decided here), ``fixed``
+    where no leaf of it moves."""
+    if isinstance(node, list):
+        items = [_plan(v, keep_model) for v in node]
+        return ((lambda n: [f(v) for (f, _), v in zip(items, n)]),
+                all(fixed for _, fixed in items))
+    if not isinstance(node, dict):
+        return _leaf_plan(node, False)
+    make, mesh, lo = dict, None, 0
+    w = node.get("w_q", node.get("w"))
+    bank = next((node[k] for k in ("gate_q", "gate") if k in node), None)
+    if isinstance(w, DTensor) and w.ndim == 2:
+        column = keep_model and _split(w) and _model_shard_dim(w) == 1 \
+            and _divides(w, 1)
+        parts = {k: _leaf_plan(v, column) for k, v in node.items()}
+        if column:
+            make, mesh = ColumnShard, w.device_mesh
+    elif isinstance(bank, DTensor) and bank.ndim == 3 and keep_model \
+            and _split(bank) and _model_shard_dim(bank) == 0 \
+            and _divides(bank, 0):
+        banks = {f"{b}{s}" for b in _BANKS for s in ("", "_q", "_scale")}
+        parts = {k: (_leaf_plan(v, True) if k in banks
+                     else _plan(v, keep_model)) for k, v in node.items()}
+        make, mesh = ExpertShard, bank.device_mesh
+        lo = mesh.get_local_rank("model") * (bank.shape[0]
+                                             // _model_size(mesh))
+    else:
+        parts = {k: _plan(v, keep_model) for k, v in node.items()}
+
+    def run(n):
+        out = make({k: f(n[k]) for k, (f, _) in parts.items()})
+        if make is not dict:
+            out.mesh = mesh
+            if make is ExpertShard:
+                out.lo = lo
+        return out
+    return run, all(fixed for _, fixed in parts.values())
+
+
 def localize(tree, *, keep_model: bool = True):
     """The parameter tree as this rank's local tensors for compute (see
     the module docstring).  A column-parallel linear or an expert bank
     whose model-sharded dim does not divide is gathered whole, as JAX's
     constraints skip such a dim."""
-    def leaf(x):
-        return _gathered(x, False) if isinstance(x, DTensor) else x
+    return _plan(tree, keep_model)[0](tree)
 
-    def walk(node):
-        if isinstance(node, list):
-            return [walk(v) for v in node]
-        if not isinstance(node, dict):
-            return leaf(node)
-        w = node.get("w_q", node.get("w"))
-        if isinstance(w, DTensor) and w.ndim == 2:
-            d = _model_shard_dim(w)
-            if keep_model and d == 1 and _divides(w, 1):
-                out = ColumnShard({k: _gathered(v, True) for k, v in
-                                   node.items()})
-                out.mesh = w.device_mesh
-                return out
-            return {k: leaf(v) for k, v in node.items()}
-        bank = next((node[k] for k in ("gate_q", "gate") if k in node),
-                    None)
-        if isinstance(bank, DTensor) and bank.ndim == 3:
-            if keep_model and _model_shard_dim(bank) == 0 \
-                    and _divides(bank, 0):
-                banks = {f"{b}{s}" for b in _BANKS
-                         for s in ("", "_q", "_scale")}
-                out = ExpertShard({k: (_gathered(v, True) if k in banks
-                                       else walk(v))
-                                   for k, v in node.items()})
-                mesh = bank.device_mesh
-                m = _model_size(mesh)
-                out.mesh = mesh
-                out.lo = mesh.get_local_rank("model") * (bank.shape[0] // m)
-                return out
-        return {k: walk(v) for k, v in node.items()}
 
-    return walk(tree)
+def gather_block(tree):
+    """A block's (or any subtree's) resting parameters -> local tensors
+    for compute by :func:`localize`'s rules (the scope's
+    ``keep_model``); the identity outside :func:`scope`.  Call it where
+    the block runs and pass the result straight on, so no reference
+    keeps the gathered tensors past the block.  The subtree's plan is
+    worked out at its first gather in the scope; a step then only runs
+    the collectives, and a subtree where nothing moves (every mesh dim
+    it is split over of size one) returns the same views every step."""
+    s = _SCOPE.get()
+    if s is None:
+        return tree
+    hit = s.plans.get(id(tree))
+    if hit is None or hit[0] is not tree:
+        run, fixed = _plan(tree, s.keep_model)
+        hit = s.plans[id(tree)] = (tree, run, run(tree) if fixed else None)
+    return hit[1](tree) if hit[2] is None else hit[2]
+
+
+class SeqShard(dict):
+    """A layer's KV cache (``k``, ``v``, ``len`` and an int8 cache's
+    scales) whose ``[B, S/m, ...]`` leaves hold this rank's positions
+    ``offset`` to ``offset + S/m`` of a sequence split over the 'model'
+    axis of ``mesh``; ``len`` is the global length."""
+
+    mesh = None
+    offset = 0
+
+
+class StateShard(dict):
+    """A layer's recurrent state whose leaf ``name`` holds this rank's
+    slice of dim ``dims[name]`` over the 'model' axis of ``mesh``."""
+
+    mesh = None
+    dims: dict = {}
+
+
+class CacheShards(dict):
+    """A decode step's caches as this rank's shards (:func:`split_caches`):
+    ``split`` maps a leaf's path (``"kv/k"``, ``"ssm/ssm"``,
+    ``"cross_k"``) to its dim split over 'model'."""
+
+    mesh = None
+    split: dict = {}
+
+
+def _axes(entry) -> tuple:
+    return () if entry is None else ((entry,) if isinstance(entry, str)
+                                     else tuple(entry))
+
+
+def split_caches(caches: dict, mesh, cfg, *, seq_shard: bool = True
+                 ) -> dict:
+    """Caches of this rank's batch rows (as the mesh serve holds them)
+    -> its shards over 'model' as ``sharding.cache_specs(...,
+    seq_shard=seq_shard)`` lays them out: the KV sequence (and int8
+    scales, and cross K/V) where it divides, SSM states their heads.  A
+    leaf that does not divide stays whole, as there.  Returns a
+    :class:`CacheShards`."""
+    m = _model_size(mesh)
+    i = mesh.get_local_rank("model") if "model" in tuple(
+        mesh.mesh_dim_names) else 0
+    # Only the 'model' entries are read: the batch dim is split already.
+    specs = sharding.cache_specs(mesh, caches, cfg, 1, seq_shard=seq_shard)
+    out = CacheShards()
+    out.mesh, out.split = mesh, {}
+
+    def walk(path, node, spec):
+        if isinstance(node, dict):
+            return {k: walk(f"{path}/{k}" if path else k, v, spec[k])
+                    for k, v in node.items()}
+        dim = next((d for d, e in enumerate(spec.spec)
+                    if "model" in _axes(e)), None)
+        if dim is None:
+            return node
+        out.split[path] = dim
+        if m == 1:
+            return node
+        return _chunk(node, dim, m, i).clone()
+
+    out.update(walk("", caches, specs))
+    return out
+
+
+def _seq_shard(view: dict, mesh) -> SeqShard:
+    out = SeqShard(view)
+    out.mesh = mesh
+    out.offset = mesh.get_local_rank("model") * view["k"].shape[1]
+    return out
+
+
+def layer_cache(caches: dict, group: str, i: int) -> dict:
+    """Layer ``i``'s view ``{name: leaf[i]}`` of ``caches[group]``
+    (``"kv"`` or ``"ssm"``; in-place writes land in the stacked leaves),
+    a :class:`SeqShard` / :class:`StateShard` where ``caches`` is a
+    :class:`CacheShards` that splits the group's leaves."""
+    node = caches[group]
+    view = {name: t[i] for name, t in node.items()}
+    if not isinstance(caches, CacheShards):
+        return view
+    dims = {name: caches.split[f"{group}/{name}"] - 1 for name in node
+            if f"{group}/{name}" in caches.split}
+    if not dims:
+        return view
+    if group == "kv":
+        return _seq_shard(view, caches.mesh)
+    out = StateShard(view)
+    out.mesh, out.dims = caches.mesh, dims
+    return out
+
+
+def cross_cache(caches: dict, i: int) -> dict:
+    """Layer ``i``'s cross K/V ``{k, v}`` (a :class:`SeqShard` where its
+    frames are split)."""
+    view = {"k": caches["cross_k"][i], "v": caches["cross_v"][i]}
+    if isinstance(caches, CacheShards) and "cross_k" in caches.split:
+        return _seq_shard(view, caches.mesh)
+    return view
+
+
+def gather_state(state):
+    """A layer's recurrent state -> whole (a :class:`StateShard`'s leaves
+    all-gathered over 'model'); others pass through."""
+    if not isinstance(state, StateShard):
+        return state
+    return {name: (_model_gather(t, state.mesh, state.dims[name])
+                   if name in state.dims else t)
+            for name, t in state.items()}
+
+
+def state_shard(state, name: str, full: torch.Tensor) -> torch.Tensor:
+    """This rank's slice of a whole new state leaf ``name`` in
+    ``state``'s layout."""
+    if not isinstance(state, StateShard) or name not in state.dims:
+        return full
+    m = _model_size(state.mesh)
+    return _chunk(full, state.dims[name], m,
+                  state.mesh.get_local_rank("model"))
 
 
 def _model_gather(y: torch.Tensor, mesh, dim: int) -> torch.Tensor:
@@ -289,15 +588,6 @@ def gather_batch(x: torch.Tensor, mesh, *, global_rows: int,
                               run_check=False, shape=torch.Size(shape),
                               stride=torch.empty(shape, device="meta")
                               .stride()).full_tensor()
-
-
-def to_rest(g: torch.Tensor, like: DTensor) -> torch.Tensor:
-    """A replicated full tensor -> this rank's shard in ``like``'s layout
-    (no communication)."""
-    mesh = like.device_mesh
-    return DTensor.from_local(g, mesh, [Replicate()] * mesh.ndim,
-                              run_check=False).redistribute(
-        mesh, like.placements).to_local()
 
 
 def as_dtensor(local: torch.Tensor, like: DTensor) -> DTensor:

@@ -20,10 +20,16 @@ it once and records:
 The cell's JSON has the JAX package's keys (``lower_s`` is the build's
 seconds, ``compile_s`` the trace's; ``xla_cost_*`` repeat the counter's
 figures, which are loop-aware already) and one more, ``port``.  The step
-is the port's as it runs today: ``spmd.localize`` gathers every weight
-on every rank, and a rank's caches hold its batch rows over the whole
-sequence; ``--no-seq-shard`` and ``--act-shard`` are accepted but change
-nothing (``port.not_applied`` says so).  ``--quant w8a8`` deploys every
+is the port's mesh step: the params rest as DTensors and the model
+gathers them one block at a time where it runs the block
+(``spmd.gather_block``; a train step reduce-scatters each block's
+gradients in its backward); a decode cell's caches are this rank's
+shards as ``sharding.cache_specs`` lays them out (``spmd.split_caches``:
+the KV sequence over 'model', SSM states by heads), as the JAX package's
+dry run lays them out, and ``--no-seq-shard`` lays them out with
+``seq_shard=False`` (``port.cache_seq_shard`` says which).
+``--act-shard`` is accepted but changes nothing (``port.not_applied``
+says so).  ``--quant w8a8`` deploys every
 linear but the routers on K1 (``w8a8_kernel``), as the JAX package's
 ``w8a8`` deploys them on its fused kernel.
 
@@ -38,7 +44,6 @@ Usage:
 Each --all cell runs in a subprocess (a process holds one process group).
 """
 import argparse
-import contextlib
 import dataclasses
 import json
 import os
@@ -72,8 +77,11 @@ class Cell:
     step: object
     arguments: list
     # Bytes this rank holds beyond the JAX package's layout (its caches
-    # whole over the sequence, where JAX splits them over 'model').
+    # laid out with seq_shard=False, where JAX splits them over 'model').
     over_jax_layout: int = 0
+    # Whether the decode caches are split over sequence (cache_specs'
+    # seq_shard=True layout).
+    seq_shard: bool = False
 
 
 def check_device(device) -> torch.device:
@@ -163,35 +171,31 @@ def micro_batches(cfg, shape, mesh) -> int:
     return micro
 
 
-def _on_mesh(params, mesh):
-    """(params to compute with, context) of the port's mesh serve: the
-    params gathered (``spmd.localize``) and ``spmd.scope``; as they are
-    without a mesh."""
+def _on_mesh(step, mesh):
+    """``step`` run inside one ``spmd.scope(mesh)``, re-entered at each
+    call, so the model's gather plans carry over from call to call as
+    within a serving call; ``step`` itself without a mesh."""
     if mesh is None:
-        return params, contextlib.nullcontext()
-    return spmd.localize(params), spmd.scope(mesh)
+        return step
+    with spmd.scope(mesh):
+        return spmd.bind_scope(step)
 
 
 def decode_step_fn(cfg, mode, mesh):
-    """The port's mesh serve decode step: gather the params, then
-    ``model.decode_step`` on this rank's rows."""
+    """The port's mesh serve decode step: ``model.decode_step`` on this
+    rank's rows (and its cache shards)."""
     def step(params, batch, caches):
-        local, ctx = _on_mesh(params, mesh)
-        with ctx:
-            return model_lib.decode_step(local, batch, caches, cfg,
-                                         mode=mode)
-    return step
+        return model_lib.decode_step(params, batch, caches, cfg, mode=mode)
+    return _on_mesh(step, mesh)
 
 
 def prefill_step_fn(cfg, max_len: int, mode, mesh):
-    """The port's mesh serve prefill: gather the params, then
-    ``model.prefill`` of this rank's rows into fresh caches."""
+    """The port's mesh serve prefill: ``model.prefill`` of this rank's
+    rows into fresh caches."""
     def step(params, batch):
-        local, ctx = _on_mesh(params, mesh)
-        with ctx:
-            return model_lib.prefill(local, batch, cfg, max_len=max_len,
-                                     mode=mode)
-    return step
+        return model_lib.prefill(params, batch, cfg, max_len=max_len,
+                                 mode=mode)
+    return _on_mesh(step, mesh)
 
 
 def build_cell(arch: str, shape_name: str, mesh, *, quant: str = "none",
@@ -201,7 +205,6 @@ def build_cell(arch: str, shape_name: str, mesh, *, quant: str = "none",
                act_shard: bool = False, device="cuda"):
     """Returns (cell, meta) for one cell, ``cell`` None when the cell is
     skipped.  Call it under a FakeTensorMode (``run_cell`` does)."""
-    del seq_shard   # the port's caches are never split over sequence
     dev = torch.device(device)
     cfg = cfg_lib.get_config(arch)
     if kv_quant:
@@ -261,20 +264,23 @@ def build_cell(arch: str, shape_name: str, mesh, *, quant: str = "none",
         step = prefill_step_fn(cfg, shape.seq_len, deploy_plan, mesh)
         return Cell(lambda: step(params, batch), [params, batch]), meta
 
-    # decode: the caches of this rank's rows, as the port's mesh serve
-    # holds them (batch rows only; every position, every head).
+    # decode: this rank's shards of the caches as cache_specs lays them
+    # out (its batch rows; the KV sequence over 'model' with seq_shard).
     dp = shard_lib._prod_axis(mesh, shard_lib.batch_axes(mesh))
     b = shape.global_batch
     rows = b // dp if b % dp == 0 else b
     specs = cfg_lib.decode_input_specs(cfg, shape, batch=rows, device=dev)
-    batch, caches = specs["batch"], specs["caches"]
+    batch = specs["batch"]
+    caches = spmd.split_caches(specs["caches"], mesh, cfg,
+                               seq_shard=seq_shard)
+    del specs
     # The JAX package's caches: batch over data, sequence over 'model'.
     full = cfg_lib.decode_input_specs(cfg, shape, device=dev)["caches"]
     jax_caches = shard_bytes(full, shard_lib.cache_specs(
         mesh, full, cfg, b, seq_shard=True))
     step = decode_step_fn(cfg, deploy_plan, mesh)
     return Cell(lambda: step(params, batch, caches), [params, batch, caches],
-                tensor_bytes(caches) - jax_caches), meta
+                tensor_bytes(caches) - jax_caches, seq_shard), meta
 
 
 def trace(step) -> dict:
@@ -322,9 +328,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
                             act_shard=act_shard, device=device, mesh=mesh)
         finally:
             torch.distributed.destroy_process_group()
-    not_applied = [flag for flag, given in (("--no-seq-shard", not seq_shard),
-                                            ("--act-shard", act_shard))
-                   if given]
+    not_applied = ["--act-shard"] if act_shard else []
     t0 = time.time()
     with FakeTensorMode(allow_non_fake_inputs=True):
         cell, meta = build_cell(arch, shape_name, mesh, quant=quant,
@@ -366,7 +370,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
                     "device": dev.type,
                     "kernels": agg["kernels"],
                     "not_applied": not_applied,
-                    "cache_seq_shard": False,
+                    "cache_seq_shard": cell.seq_shard,
                     "jax_layout_argument_bytes":
                         arg_bytes - cell.over_jax_layout,
                     "trace_s": tr["seconds"],
@@ -397,8 +401,9 @@ def main(argv=None):
     ap.add_argument("--plan", default=None,
                     help="DeploymentPlan: backend name, inline JSON, or path")
     ap.add_argument("--no-seq-shard", action="store_true",
-                    help="disable KV sequence sharding (the port's caches "
-                         "are never split over sequence: no effect)")
+                    help="disable KV sequence sharding: a decode cell's "
+                         "caches split over batch only (cache_specs' "
+                         "seq_shard=False)")
     ap.add_argument("--remat-policy", default="nothing",
                     choices=["nothing", "dots"])
     ap.add_argument("--kv-quant", action="store_true",

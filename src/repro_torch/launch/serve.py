@@ -42,7 +42,9 @@ pjit path: the (frozen) params are laid out by
 its rows of the prompt batch with the column-parallel linears (q/k/v,
 gate/up, in_proj, the head) on its own output columns -- under a
 ``w8a8_kernel`` plan K1 runs on its local shard -- and the row-parallel
-ones gathered to their full K (``distributed/spmd.py``).  ``--quant
+ones gathered to their full K, one block at a time where the block runs
+(``spmd.gather_block``; ``distributed/spmd.py``); each rank's caches
+hold its rows over the whole sequence.  ``--quant
 w8a8`` is ``M.DEFAULT_DEPLOY_PLAN``.  Without a launcher's ``RANK`` /
 ``WORLD_SIZE`` in the environment it starts the N ranks itself: gloo
 ranks with ``--device cpu``, one CUDA card per rank otherwise (fewer
@@ -257,7 +259,8 @@ def static_generate(params, cfg, prompts, n_tokens: int, *, max_len: int,
     (the static engine of the launcher).  Returns (tokens [B, n_tokens]
     int64, the prefill's last-position logits [B, 1, V] f32), both for
     the whole batch.  With ``mesh`` the params are DTensors
-    (``sharding.distribute``) and each rank serves its rows of the batch
+    (``sharding.distribute``), gathered one block at a time where the
+    model runs it, and each rank serves its rows of the batch
     (``distributed/spmd.py``); every rank returns the whole batch."""
     from repro_torch.distributed import spmd
     from repro_torch.models import model as M
@@ -265,7 +268,6 @@ def static_generate(params, cfg, prompts, n_tokens: int, *, max_len: int,
     batch = {"tokens": prompts.long()}
     ctx = contextlib.nullcontext()
     if mesh is not None:
-        params = spmd.localize(params)
         batch = spmd.local_batch(batch, mesh)
         ctx = spmd.scope(mesh)
     with ctx:

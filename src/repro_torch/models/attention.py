@@ -36,6 +36,7 @@ import torch
 
 from repro_torch.core import backend as backend_lib
 from repro_torch.core import quant
+from repro_torch.distributed import collectives, spmd
 # ``constrain`` sits at the JAX package's sites; it redistributes DTensors
 # only, so on the mesh path (local tensors, distributed/spmd.py) it is inert.
 from repro_torch.distributed.sharding import constrain
@@ -198,11 +199,15 @@ def _int_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         torch.int32)
 
 
-def attend_decode_int8(q, k_q, k_s, v_q, v_s, kv_len_mask=None
-                       ) -> torch.Tensor:
+def attend_decode_int8(q, k_q, k_s, v_q, v_s, kv_len_mask=None, *,
+                       reduce=None) -> torch.Tensor:
     """Fully-integer decode attention over an int8 KV cache (KIVI-style):
     q and the v-scale-folded probabilities are quantized too, so both
-    contractions are int8 x int8 -> int32."""
+    contractions are int8 x int8 -> int32.  ``reduce(op, x)`` (op "max"
+    or "sum") completes each reduction over the key axis across the
+    ranks of a sequence-split cache (:func:`_attend_seq_shard`): the
+    score max, the denominator, the probability scale and the int32
+    products."""
     b, sq, h, d = q.shape
     kvh = k_q.shape[2]
     groups = h // kvh
@@ -220,15 +225,20 @@ def attend_decode_int8(q, k_q, k_s, v_q, v_s, kv_len_mask=None
     if kv_len_mask is not None:
         scores = torch.where(kv_len_mask[:, None, None, None, :], scores,
                              NEG_INF)
-    m = scores.amax(dim=-1, keepdim=True)
+    if reduce is None:
+        def reduce(op, x):
+            return x
+    m = reduce("max", scores.amax(dim=-1, keepdim=True))
     p = torch.exp(scores - m)
-    l = p.sum(dim=-1)
+    l = reduce("sum", p.sum(dim=-1))
     p_fold = p * v_s.to(torch.float32).permute(0, 2, 1)[:, :, None, None, :]
-    p_scale = torch.clamp_min(p_fold.amax(dim=-1), 1e-8) / 127.0
+    p_scale = torch.clamp_min(reduce("max", p_fold.amax(dim=-1)),
+                              1e-8) / 127.0
     pq = torch.clamp(torch.round(p_fold / p_scale[..., None]), 0, 127).to(
         torch.int8)
-    o_int = _int_dot(pq.reshape(b, kvh, sq * groups, -1),
-                     v_q.permute(0, 2, 1, 3)).reshape(b, kvh, sq, groups, d)
+    o_int = reduce("sum", _int_dot(pq.reshape(b, kvh, sq * groups, -1),
+                                   v_q.permute(0, 2, 1, 3))).reshape(
+        b, kvh, sq, groups, d)
     out = o_int.to(torch.float32) * p_scale[..., None]
     out = out / l[..., None]
     out = out.permute(0, 2, 1, 3, 4).reshape(b, sq, h, d)
@@ -356,7 +366,11 @@ def _attend_dense_cache(q, k, v, kv_cache: dict, *, causal: bool = True,
     the ``min(len + 1, S_max)`` live slots (keys are stored post-RoPE, so
     the slot order does not matter).  A longer windowed cache takes the
     band mask instead.  Writes and the ``len`` advance happen in place,
-    on the device."""
+    on the device.  A :class:`spmd.SeqShard` cache holds this rank's
+    positions of a sequence split over 'model' (:func:`_attend_seq_shard`).
+    """
+    if isinstance(kv_cache, spmd.SeqShard):
+        return _attend_seq_shard(q, k, v, kv_cache, window=window)
     s = q.shape[1]
     dev = q.device
     length = kv_cache["len"]
@@ -399,6 +413,76 @@ def _attend_dense_cache(q, k, v, kv_cache: dict, *, causal: bool = True,
             out = attend_decode(q, kv_cache["k"], kv_cache["v"], mask)
     length.add_(s)
     return out
+
+
+def _owner_write(t: torch.Tensor, idx: torch.Tensor, own: torch.Tensor,
+                 x: torch.Tensor) -> None:
+    """``t[:, idx] = x`` where ``own`` (a 0-d bool) holds, else unchanged:
+    index arithmetic, no host read."""
+    old = t.index_select(1, idx)
+    t.index_copy_(1, idx, torch.where(own, x.to(t.dtype), old))
+
+
+def _attend_seq_shard(q, k, v, kv_cache, *, window=None) -> torch.Tensor:
+    """One decode step over a :class:`spmd.SeqShard` dense cache: every
+    rank computes the new token's k/v (activations are replicated over
+    'model'); the rank owning its position (its ring slot under a
+    window) writes it at ``position - offset``; attention combines the
+    shards (:func:`_attend_shards`; an int8 cache by
+    :func:`attend_decode_int8`'s own reductions) under
+    :func:`_attend_dense_cache`'s masks, on the global slot indices."""
+    s = q.shape[1]
+    if s != 1:
+        raise ValueError(f"a sequence-split cache serves decode steps "
+                         f"(S == 1), got S={s}")
+    dev = q.device
+    length = kv_cache["len"]
+    mesh = kv_cache.mesh
+    s_local = kv_cache["k"].shape[1]
+    s_cache = s_local * mesh.shape[tuple(mesh.mesh_dim_names)
+                                   .index("model")]
+    ring = window is not None and s_cache <= window
+    slot = length.long() % s_cache if ring else length.long()
+    local = slot - kv_cache.offset
+    own = (local >= 0) & (local < s_local)
+    idx = torch.clamp(local, 0, s_local - 1).reshape(1)
+    int8 = "k_scale" in kv_cache
+    for name, x in (("k", k), ("v", v)):
+        if int8:
+            codes, scale = quantize_kv(x)
+            _owner_write(kv_cache[name], idx, own, codes)
+            _owner_write(kv_cache[f"{name}_scale"], idx, own, scale)
+        else:
+            _owner_write(kv_cache[name], idx, own, x)
+    slots = kv_cache.offset + torch.arange(s_local, device=dev)
+    if ring:
+        mask = (slots < torch.clamp_max(length + s, s_cache))[None]
+    else:
+        mask = (slots < length + s)[None]
+        if window is not None:
+            mask = mask & (slots > length + s - 1 - window)[None]
+    if int8:
+        out = attend_decode_int8(
+            q, kv_cache["k"], kv_cache["k_scale"], kv_cache["v"],
+            kv_cache["v_scale"], mask.expand(q.shape[0], s_local),
+            reduce=collectives._reducer(mesh.get_group("model")))
+    else:
+        out = _attend_shards(q, kv_cache["k"], kv_cache["v"], mask, mesh)
+    length.add_(s)
+    return out
+
+
+def _attend_shards(q, k, v, valid, mesh) -> torch.Tensor:
+    """Decode attention ([B, 1, H, D]) over this rank's shards k/v
+    ``[B, S/m, KVH, D]`` of a sequence split over 'model'; ``valid``
+    ``[B or 1, S/m]`` marks the live positions.  Each rank's partials
+    are merged by the flash-decode combine of
+    ``collectives.seq_parallel_decode_attention``."""
+    b, _, h, d = q.shape
+    m, l, o = collectives._partial_decode(q, k, v,
+                                          valid.expand(b, k.shape[1]))
+    out = collectives._combine(m, l, o, mesh.get_group("model"))
+    return out.reshape(b, 1, h, d).to(q.dtype)
 
 
 def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -463,7 +547,14 @@ def attention(p: dict, x: torch.Tensor, cfg, *, positions=None,
 
     if xattn_cache is not None:
         kx, vx = xattn_cache["k"], xattn_cache["v"]
-        if max(s, kx.shape[1]) <= chunked_threshold:
+        if isinstance(xattn_cache, spmd.SeqShard):
+            if s != 1:
+                raise ValueError("a frame-split cross K/V cache serves "
+                                 f"decode steps (S == 1), got S={s}")
+            out = _attend_shards(q, kx, vx, torch.ones(
+                (1, kx.shape[1]), dtype=torch.bool, device=x.device),
+                xattn_cache.mesh)
+        elif max(s, kx.shape[1]) <= chunked_threshold:
             out = attend_decode(q, kx, vx)
         else:
             out = attend_chunked(q, kx, vx, causal=False,

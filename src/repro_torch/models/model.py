@@ -22,6 +22,10 @@ Batch keys (which are present depends on the arch's frontend):
   positions [B, S] or [3, B, S] (M-RoPE t/h/w) integer ids, optional
   labels    [B, S] integer next-token ids, -1 where no loss is taken
   length    the true prompt length of a right-padded ``tokens`` batch
+
+On a mesh (``distributed/spmd.py``) the params rest as DTensors: the
+embedding, the final norms and the head are gathered at their one use
+(``spmd.gather_block``), the blocks inside the stack's loops.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ import torch
 
 from repro_torch import device as device_lib
 from repro_torch.core import backend as backend_lib
+from repro_torch.distributed import spmd
 from repro_torch.models import layers, transformer
 
 
@@ -184,7 +189,7 @@ def _embed_inputs(params, batch, cfg):
     batch has them, else the token embedding."""
     if "embeds" in batch:
         return batch["embeds"].to(_dtype(cfg))
-    return layers.embed(params["embed"], batch["tokens"])
+    return layers.embed(spmd.gather_block(params["embed"]), batch["tokens"])
 
 
 def _encoder_out(params, batch, cfg, remat=False, mode=None):
@@ -195,7 +200,8 @@ def _encoder_out(params, batch, cfg, remat=False, mode=None):
     h = transformer.apply_encoder(params["stack"],
                                   batch["frames"].to(_dtype(cfg)), cfg,
                                   remat=remat, mode=mode)
-    return layers.rmsnorm(params["enc_final_norm"], h, cfg.norm_eps)
+    return layers.rmsnorm(spmd.gather_block(params["enc_final_norm"]), h,
+                          cfg.norm_eps)
 
 
 def forward(params, batch, cfg, *, train: bool = False,
@@ -212,13 +218,14 @@ def forward(params, batch, cfg, *, train: bool = False,
                                      positions=batch.get("positions"),
                                      remat=remat, remat_policy=remat_policy,
                                      mode=mode, enc_out=enc_out)
-    return layers.rmsnorm(params["final_norm"], h, cfg.norm_eps), aux
+    return layers.rmsnorm(spmd.gather_block(params["final_norm"]), h,
+                          cfg.norm_eps), aux
 
 
 def _head_weight(params, cfg):
     if cfg.tie_embeddings:
-        return {"w": params["embed"]["table"].T}
-    return params["lm_head"]
+        return {"w": spmd.gather_block(params["embed"])["table"].T}
+    return spmd.gather_block(params["lm_head"])
 
 
 def logits_fn(params, h, cfg, mode=None):
@@ -323,7 +330,8 @@ def prefill(params, batch, cfg, *, max_len: int, mode=None):
         length = torch.as_tensor(length, device=dev).to(torch.int32)
         h_last = h.index_select(1, (length.long() - 1).reshape(1))
         caches["kv"]["len"].sub_((s - length).to(torch.int32))
-    h = layers.rmsnorm(params["final_norm"], h_last, cfg.norm_eps)
+    h = layers.rmsnorm(spmd.gather_block(params["final_norm"]), h_last,
+                       cfg.norm_eps)
     return logits_fn(params, h, cfg, mode), caches
 
 
@@ -362,7 +370,7 @@ def prefill_chunk(params, tokens, cfg, *, pages, block_tables, pos, n_tok,
     rows actually prefilling.  Returns ``(logits [B, V] at each row's last
     valid position, pages)``."""
     dev = tokens.device
-    x = layers.embed(params["embed"], tokens)
+    x = layers.embed(spmd.gather_block(params["embed"]), tokens)
     n_tok = torch.as_tensor(n_tok, dtype=torch.int32, device=dev)
     caches = {"kv": pages, "block_tables": block_tables,
               "lens": torch.as_tensor(pos, dtype=torch.int32, device=dev),
@@ -371,7 +379,8 @@ def prefill_chunk(params, tokens, cfg, *, pages, block_tables, pos, n_tok,
         caches["write_mask"] = torch.as_tensor(write_mask, device=dev).bool()
     h, caches = transformer.decode_stack(params["stack"], x, cfg, caches,
                                          mode=mode)
-    h = layers.rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    h = layers.rmsnorm(spmd.gather_block(params["final_norm"]), h,
+                       cfg.norm_eps)
     idx = torch.clamp(n_tok.long() - 1, 0, tokens.shape[1] - 1)
     h_last = torch.gather(h, 1, idx[:, None, None].expand(-1, 1,
                                                           h.shape[-1]))
@@ -387,5 +396,6 @@ def decode_step(params, batch, caches, cfg, *, mode=None):
     h, caches = transformer.decode_stack(params["stack"], x, cfg, caches,
                                          positions=batch.get("positions"),
                                          mode=mode)
-    h = layers.rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    h = layers.rmsnorm(spmd.gather_block(params["final_norm"]), h,
+                       cfg.norm_eps)
     return logits_fn(params, h, cfg, mode), caches

@@ -17,6 +17,13 @@ caches of ``Engine.generate``, the cross K/V (``[L, B, S_enc, KVH, D]``)
 and the recurrent states (``[L, B, H, P, N]``; a hybrid's KV caches have
 one entry per group), and each layer works on its ``[l]`` view, so
 in-place writes land in the shared tensors.
+
+On a mesh (``distributed/spmd.py``) every loop gathers its block's
+resting parameters where the block runs (``spmd.gather_block``, inside
+the remat region when training) and passes them straight on, so one
+gathered block is alive at a time; a decode step's caches may be this
+rank's shards (``spmd.layer_cache``: a sequence-split KV cache, SSM
+states split by heads, gathered per layer).
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ import torch
 from repro_torch.core import quant
 # ``constrain`` sits at the JAX package's sites; it redistributes DTensors
 # only, so on the mesh path (local tensors, distributed/spmd.py) it is inert.
+from repro_torch.distributed import spmd
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers, mamba2
@@ -237,21 +245,22 @@ def recurrent_stack(params, x, cfg, caches: dict, *, mode=None,
     runs its SSM layers.  ``prefill`` runs each SSM layer's chunked scan
     over the whole prompt and stores its final states (the JAX package's
     ``_prefill_stack``); otherwise each layer takes one recurrent step
-    (``decode_stack``).  Returns the hidden states."""
+    (``decode_stack``).  A state split over 'model' (``spmd.StateShard``)
+    is gathered for the step and this rank's shard of the new one kept.
+    Returns the hidden states."""
     states = caches["ssm"]
-    kv = caches.get("kv")
     interval = cfg.hybrid_attn_interval
     for i, blk in enumerate(params["blocks"]):
         if cfg.arch_type == "hybrid" and i % interval == 0:
-            x, _ = dense_block(params["shared_attn"], x, cfg, mode=mode,
-                               cache={name: t[i // interval]
-                                      for name, t in kv.items()})
-        state = None if prefill else {name: t[i]
-                                      for name, t in states.items()}
-        x, new = ssm_block(blk, x, cfg, state=state, mode=mode,
-                           return_final_state=prefill)
+            x, _ = dense_block(spmd.gather_block(params["shared_attn"]), x,
+                               cfg, mode=mode, cache=spmd.layer_cache(
+                                   caches, "kv", i // interval))
+        view = spmd.layer_cache(caches, "ssm", i)
+        x, new = ssm_block(spmd.gather_block(blk), x, cfg,
+                           state=None if prefill else spmd.gather_state(view),
+                           mode=mode, return_final_state=prefill)
         for name, t in states.items():
-            t[i].copy_(new[name])
+            t[i].copy_(spmd.state_shard(view, name, new[name]))
     return x
 
 
@@ -288,7 +297,10 @@ def _maybe_remat(fn, remat: bool, policy: str = "nothing"):
     kw = {"context_fn": _dots_saved} if policy == "dots" else {}
 
     def rematted(*args):
-        return checkpoint(fn, *args, use_reentrant=False, **kw)
+        # The recompute runs fn again in the backward pass: on the mesh
+        # scope of this call (spmd.bind_scope), whatever thread runs it.
+        return checkpoint(spmd.bind_scope(fn), *args, use_reentrant=False,
+                          **kw)
 
     return rematted
 
@@ -309,8 +321,10 @@ def apply_stack(params, x, cfg, *, positions=None, remat=False,
     if at in ("ssm", "hybrid"):
         interval = cfg.hybrid_attn_interval
         shared = remat_fn(lambda blk, h: dense_block(
-            blk, h, cfg, positions=positions, mode=mode)[0])
-        ssm = remat_fn(lambda blk, h: ssm_block(blk, h, cfg, mode=mode)[0])
+            spmd.gather_block(blk), h, cfg, positions=positions,
+            mode=mode)[0])
+        ssm = remat_fn(lambda blk, h: ssm_block(spmd.gather_block(blk), h,
+                                                cfg, mode=mode)[0])
         for i, blk in enumerate(params["blocks"]):
             if at == "hybrid" and i % interval == 0:
                 x = shared(params["shared_attn"], x)
@@ -321,12 +335,13 @@ def apply_stack(params, x, cfg, *, positions=None, remat=False,
             raise ValueError("an encdec stack needs the encoder output "
                              "(enc_out)")
         dec = remat_fn(lambda blk, h: decoder_block(
-            blk, h, cfg, xattn_kv=enc_out, positions=positions, mode=mode))
+            spmd.gather_block(blk), h, cfg, xattn_kv=enc_out,
+            positions=positions, mode=mode))
         for blk in params["decoder"]:
             x = dec(blk, x)
         return x, 0.0
-    block = remat_fn(lambda blk, h: _block(blk, h, cfg, positions=positions,
-                                           mode=mode))
+    block = remat_fn(lambda blk, h: _block(spmd.gather_block(blk), h, cfg,
+                                           positions=positions, mode=mode))
     aux = 0.0
     for blk in params["blocks"]:
         x, a = block(blk, x)
@@ -338,7 +353,7 @@ def apply_encoder(params, frames, cfg, *, remat=False, mode=None):
     """Bidirectional encoder over (stub) frame embeddings [B, S_enc, d];
     ``remat`` checkpoints every block."""
     enc = _maybe_remat(lambda blk, h: dense_block(
-        blk, h, cfg, causal=False, mode=mode)[0], remat)
+        spmd.gather_block(blk), h, cfg, causal=False, mode=mode)[0], remat)
     for blk in params["encoder"]:
         frames = enc(blk, frames)
     return frames
@@ -353,7 +368,8 @@ def precompute_cross_kv(params, enc_out, cfg, mode=None):
     ks, vs = [], []
     for blk in params["decoder"]:
         for name, out in (("k", ks), ("v", vs)):
-            out.append(layers.dense(blk["xattn"][name], enc_out, mode,
+            out.append(layers.dense(spmd.gather_block(blk["xattn"][name]),
+                                    enc_out, mode,
                                     path=f"xattn/{name}").reshape(
                 b, s, cfg.n_kv_heads, hd))
     return torch.stack(ks), torch.stack(vs)
@@ -433,18 +449,17 @@ def decode_stack(params, x, cfg, caches: dict, *, positions=None,
     if at in ("ssm", "hybrid"):
         return recurrent_stack(params, x, cfg, caches, mode=mode), caches
     if "block_tables" not in caches:
-        kv = caches["kv"]
         for i, blk in enumerate(params["decoder" if at == "encdec"
                                        else "blocks"]):
-            cache = {name: t[i] for name, t in kv.items()}
+            cache = spmd.layer_cache(caches, "kv", i)
             if at == "encdec":
-                x = decoder_block(blk, x, cfg, cache=cache,
-                                  positions=positions, mode=mode,
-                                  xattn_cache={"k": caches["cross_k"][i],
-                                               "v": caches["cross_v"][i]})
+                x = decoder_block(spmd.gather_block(blk), x, cfg,
+                                  cache=cache, positions=positions,
+                                  mode=mode,
+                                  xattn_cache=spmd.cross_cache(caches, i))
             else:
-                x, _ = _block(blk, x, cfg, cache=cache, positions=positions,
-                              mode=mode)
+                x, _ = _block(spmd.gather_block(blk), x, cfg, cache=cache,
+                              positions=positions, mode=mode)
         return x, caches
     shared = {key: caches[key]
               for key in ("block_tables", "lens", "write_mask", "chunk_len",
@@ -453,5 +468,6 @@ def decode_stack(params, x, cfg, caches: dict, *, positions=None,
     pages = caches["kv"]
     for i, blk in enumerate(params["blocks"]):
         kv = dict(k=_layer(pages["k"], i), v=_layer(pages["v"], i), **shared)
-        x, _ = _block(blk, x, cfg, cache=kv, positions=positions, mode=mode)
+        x, _ = _block(spmd.gather_block(blk), x, cfg, cache=kv,
+                      positions=positions, mode=mode)
     return x, caches

@@ -16,12 +16,15 @@
     optimizer's master, m and v are DTensors laid out by
     ``sharding.resolve_param_specs`` (``step`` replicated), the global
     batch (the same on every rank) is split by ``sharding.data_specs``,
-    each rank gathers the params (``spmd.localize``) and differentiates
-    its rows' share of the global loss (token-weighted; the MoE balance
-    loss over the global batch), the gradients are all-reduced over the
-    batch axes, and AdamW updates each rank's shards with the global
-    gradient norm.  The model axis holds shards of the state and does
-    the same work on every rank of it.
+    each rank differentiates its rows' share of the global loss
+    (token-weighted; the MoE balance loss over the global batch) with
+    respect to its parameter shards: the model gathers each block where
+    it runs (``spmd.gather_block`` on ``spmd.Resting`` leaves, inside the
+    remat region), and each gather's backward reduce-scatters its
+    gradient over the batch axes, so the step holds gradient shards
+    only; AdamW updates each rank's shards with the global gradient
+    norm.  The model axis holds shards of the state and does the same
+    work on every rank of it.
 
 ``run`` drives it: it restores the latest checkpoint (params, optimizer,
 step) or starts from ``model.init``, and regenerates the data stream from
@@ -83,12 +86,17 @@ def make_train_step(cfg, tcfg, plan=None, *, mesh=None) -> Callable:
     mode = plan if plan is not None else (
         "qat" if cfg.linear_mode == "qat" else None)
 
-    def value_and_grad(params, batch):
+    def value_and_grad(params, batch, rest=None):
+        """Gradients with respect to ``params``' leaves; on a mesh they
+        are this rank's shards of the DTensors ``rest``, which the model
+        gathers (``spmd.Resting``)."""
         leaves = opt_lib.tree_leaves(params)
         with torch.enable_grad():
             xs = [p.detach().requires_grad_(True) for p in leaves]
+            model_leaves = xs if rest is None else [
+                spmd.Resting(x, like) for x, like in zip(xs, rest)]
             loss, mets = model_lib.loss_fn(
-                opt_lib.tree_unflatten_like(params, xs), batch, cfg,
+                opt_lib.tree_unflatten_like(params, model_leaves), batch, cfg,
                 remat_policy=getattr(tcfg, "remat_policy", "nothing"),
                 mode=mode)
             objective = loss
@@ -114,15 +122,13 @@ def make_train_step(cfg, tcfg, plan=None, *, mesh=None) -> Callable:
             grads
 
     def mesh_step(params, opt_state, batch):
-        local = spmd.localize(params, keep_model=False)
-        loss, ce, grads = accumulate(local, spmd.local_batch(batch, mesh))
-        grads = [spmd.batch_sum(g, mesh) for g in grads]
-        rest = opt_lib.tree_leaves(params)
-        shards = [spmd.to_rest(g, like) for g, like in zip(grads, rest)]
-        gnorm = spmd.global_norm(shards, rest)
-
         def loc(tree):
             return opt_lib.tree_map(lambda x: x.to_local(), tree)
+
+        rest = opt_lib.tree_leaves(params)
+        loss, ce, shards = accumulate(loc(params),
+                                      spmd.local_batch(batch, mesh), rest)
+        gnorm = spmd.global_norm(shards, rest)
 
         opt_local = {k: (loc(v) if k != "step" else v)
                      for k, v in opt_state.items()}
@@ -138,7 +144,7 @@ def make_train_step(cfg, tcfg, plan=None, *, mesh=None) -> Callable:
         return back(new_params), new_opt, {"loss": loss, "ce": ce,
                                            **opt_metrics}
 
-    def accumulate(params, batch):
+    def accumulate(params, batch, rest=None):
         """(loss, ce, grads) over ``tcfg.microbatches`` microbatches."""
         m = tcfg.microbatches
         if m > 1:
@@ -147,18 +153,18 @@ def make_train_step(cfg, tcfg, plan=None, *, mesh=None) -> Callable:
                    for p in opt_lib.tree_leaves(params)]
             loss = ce = 0.0
             for mb in _micro_split(batch, m):
-                l_mb, mets, grads = value_and_grad(params, mb)
+                l_mb, mets, grads = value_and_grad(params, mb, rest)
                 acc = [a + g for a, g in zip(acc, grads)]
                 loss = loss + l_mb
                 ce = ce + mets["ce"]
             grads = [a / m for a in acc]
             return loss / m, ce / m, grads
-        loss, mets, grads = value_and_grad(params, batch)
+        loss, mets, grads = value_and_grad(params, batch, rest)
         return loss, mets["ce"], grads
 
     def train_step(params, opt_state, batch):
         if mesh is not None:
-            with spmd.scope(mesh):
+            with spmd.scope(mesh, keep_model=False):
                 return mesh_step(params, opt_state, batch)
         loss, ce, grads = accumulate(params, batch)
         new_params, new_opt, opt_metrics = opt_lib.adamw_update(

@@ -10,17 +10,20 @@ reduced granite-moe-1b-a400m x decode x none, and long_500k (JAX's skip
 record).  On the 2 x 2 ("data", "model") mesh:
 
 * the JSON keys are JAX's plus ``port``; the skip record is JAX's;
-* ``argument_bytes`` equals JAX's ``memory_analysis()`` on prefill and
-  train; on decode it equals JAX's less JAX's cache shard bytes (batch
-  over data, sequence over model) plus the port's (batch rows only),
-  both computed from the layouts here, and the cell's
-  ``port.jax_layout_argument_bytes`` is JAX's figure;
+* ``argument_bytes`` equals JAX's ``memory_analysis()`` on every cell:
+  a decode cell's caches are the rank's shards as ``cache_specs`` lays
+  them out (batch over data, sequence over model), and the cell's
+  ``port.jax_layout_argument_bytes`` is JAX's figure; with
+  ``seq_shard=False`` the caches are the port's own ``shard_bytes`` of
+  ``cache_specs(..., seq_shard=False)`` (batch rows only);
 * ``flops_per_device`` is JAX's loop-aware HLO dot count plus the work
   the port's rank does that XLA splits over 'model', counted here from
   the config, exactly: serving, the row-parallel linears (o, down) at
-  their full K, attention over every head and MoE's router (all gathered
-  whole by ``spmd.localize``), each (m - 1) / m of it extra; training,
-  the whole step (``localize(keep_model=False)``), m times JAX's;
+  their full K, a prefill's attention over every head and MoE's router
+  (all gathered whole by ``spmd.gather_block``), each (m - 1) / m of it
+  extra (a decode step's attention runs on the rank's sequence shard,
+  as XLA splits it); training, the whole step (every block gathered
+  whole), m times JAX's;
 * the w8a8 cells' K1 records sum to 2 M K N over the linears, counted
   here from the config (columns over 'model' for q, k, v, gate, up and
   the head); JAX's HLO count is printed beside;
@@ -43,6 +46,9 @@ CELLS = [("qwen3-8b", s, q) for s in ("d_small", "p_small", "t_small")
          for q in ("none", "w8a8")] + [
     ("granite-moe-1b-a400m", "d_small", "none"),
     ("qwen3-8b", "long_500k", "none")]
+DECODE_CELLS = [("qwen3-8b", "d_small", "none"),
+                ("qwen3-8b", "d_small", "w8a8"),
+                ("granite-moe-1b-a400m", "d_small", "none")]
 CELLS_4X1 = [("qwen3-8b", s, "none") for s in ("d_small", "p_small",
                                                  "t_small")] + [
     ("qwen3-8b", "d_small", "w8a8")]
@@ -54,6 +60,7 @@ import json, sys
 sys.path.insert(0, "src")
 CELLS = %(cells)r
 CELLS_4X1 = %(cells_4x1)r
+DECODE_CELLS = %(decode_cells)r
 MESHES = %(meshes)r
 
 def small(cfg_lib, SHAPES, ShapeConfig):
@@ -131,6 +138,11 @@ for shape, cells in (((2, 2), CELLS), ((4, 1), CELLS_4X1)):
     res["x".join(map(str, shape))] = run(
         lambda *a, **kw: dryrun.run_cell(*a, device="cpu", mesh=mesh, **kw),
         cells)
+    if shape == (2, 2):
+        res["2x2"].update({k + "/noseq": v for k, v in run(
+            lambda *a, **kw: dryrun.run_cell(*a, device="cpu", mesh=mesh,
+                                             seq_shard=False, **kw),
+            DECODE_CELLS).items()})
     torch.distributed.destroy_process_group()
 print("RESULT " + json.dumps(res))
 """
@@ -145,6 +157,7 @@ def results():
     procs = [(side, subprocess.Popen(
         [sys.executable, "-c", code % {"cells": CELLS,
                                        "cells_4x1": CELLS_4X1,
+                                       "decode_cells": DECODE_CELLS,
                                        "meshes": meshes}],
         cwd=ROOT, text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE))
         for side, code, meshes in runs]
@@ -159,16 +172,19 @@ def results():
 
 
 def _port_cache_bytes(arch: str) -> int:
-    """The caches a rank of the port's 2 x 2 mesh serve holds: its 2 rows
-    of 4, every position and head."""
+    """The port's own reckoning of the caches a rank of the 2 x 2 mesh
+    holds under ``cache_specs(..., seq_shard=False)``: its 2 rows of 4,
+    every position and head."""
     from repro_torch import configs
-    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import dryrun
     cfg = configs.reduced_config(arch)
-    caches = configs.decode_input_specs(
-        cfg, configs.ShapeConfig("d", "decode", 64, 4), batch=2,
+    full = configs.decode_input_specs(
+        cfg, configs.ShapeConfig("d", "decode", 64, 4),
         device="meta")["caches"]
-    return sum(t.numel() * t.element_size()
-               for t in opt_lib.tree_leaves(caches))
+    mesh = sharding.AbstractMesh((2, 2), ("data", "model"))
+    return dryrun.shard_bytes(full, sharding.cache_specs(
+        mesh, full, cfg, 4, seq_shard=False))
 
 
 def _k1_ops(arch: str, kind: str, rows: int, m: int) -> float:
@@ -224,26 +240,38 @@ def test_decode_argument_bytes_by_layout(results, arch, quant):
     key = f"{arch}/d_small/{quant}"
     ref = results["jax"]["2x2"][key]["memory"]["argument_bytes"]
     jax_caches = results["jax"]["2x2"][f"{arch}/cache_shard_bytes"]
-    port_caches = _port_cache_bytes(arch)
-    assert port_caches > jax_caches
     got = results["port"]["2x2"][key]
-    assert got["memory"]["argument_bytes"] == ref - jax_caches + port_caches
+    # The caches split over sequence as JAX splits them: JAX's bytes.
+    assert got["memory"]["argument_bytes"] == ref
+    assert got["port"]["cache_seq_shard"] is True
     # The dry run's own reckoning of JAX's layout (reported per cell).
     assert got["port"]["jax_layout_argument_bytes"] == ref
+    # --no-seq-shard: the caches cache_specs(..., seq_shard=False) lays
+    # out, by the port's own shard_bytes.
+    port_caches = _port_cache_bytes(arch)
+    assert port_caches > jax_caches
+    noseq = results["port"]["2x2"][key + "/noseq"]
+    assert noseq["memory"]["argument_bytes"] == \
+        ref - jax_caches + port_caches
+    assert noseq["port"]["cache_seq_shard"] is False
+    assert noseq["port"]["jax_layout_argument_bytes"] == ref
 
 
 def _unsplit_flops(arch: str, kind: str, rows: int) -> float:
     """Flops of one rank's serving step that the port runs whole and XLA
     splits over 'model': ``rows`` rows; o and (dense) down at their full
-    K, q.k and p.v over every head (the whole score matrix, as both
-    count dots), MoE's router.  The experts, q, k, v, gate, up and the
-    head keep their model shard on both sides."""
+    K, a prefill's q.k and p.v over every head (the whole score matrix,
+    as both count dots; a decode step's run on the rank's sequence shard
+    of the cache, 1/m of them, as XLA's), MoE's router.  The experts, q,
+    k, v, gate, up and the head keep their model shard on both sides."""
     from repro_torch import configs
     cfg = configs.reduced_config(arch)
     d, hd, h = cfg.d_model, cfg.resolved_head_dim, cfg.n_heads
     sq, skv = _SEQ[kind]
     tokens = rows * sq
-    per_layer = 2 * tokens * h * hd * d + 4 * rows * h * hd * sq * skv
+    per_layer = 2 * tokens * h * hd * d
+    if kind != "d_small":
+        per_layer += 4 * rows * h * hd * sq * skv
     if cfg.moe is None:
         per_layer += 2 * tokens * cfg.d_ff * d
     else:
