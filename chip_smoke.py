@@ -34,7 +34,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
                1500 at its (1280, 1280) and (1280, 5120)); K2 and K3 at
                deepseek-7b's G = 1 and stablelm-12b's D = 160.
 4. main     -- serves 8 requests through the port's ContinuousEngine at
-               qwen3-8b's widths (w8a8_kernel plan, paged attention,
+               qwen3-8b's widths and SERVE_LAYERS = 12 of its 36 layers
+               (the serving phases 4-7 share this model; w8a8_kernel plan,
+               paged attention,
                chunked prefill, int8 KV pool, random weights from a seed),
                checks every request is OK and every kernel launched,
                serves them once more with CUDA events around each kernel
@@ -42,11 +44,12 @@ Phases (each prints one JSON line; any failure exits non-zero):
                split into decode and prefill calls, its own line), and
                replays the requests through the plain versions.
 5. static   -- the static engine (Engine.generate over dense KV caches)
-               on the same model (all 36 layers) and the same prompts,
+               on the same model (12 of 36 layers) and the same prompts,
                one call per prompt:
-               greedy with the kernels (K1 must launch on every linear),
-               greedy with the plain versions (prefill logits gated as in
-               main), twice sampled with one key (identical streams); the
+               greedy with the kernels (K1 must launch on every linear;
+               prefill logits and first tokens gated as in main, against
+               the plain versions' prefill), twice sampled with one key
+               (identical streams); the
                sampler's random bits on the card equal the CPU's and its
                gumbel is within 2 ulp; decode-step and sampler times.
 6. blocking -- the serving path with blocking prefill (the engine's
@@ -68,8 +71,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
                bytes, save and restore seconds).  K3 is also held against
                its plain version at the suffix-prefill shapes in phase 3.
 8. distributed -- the mesh paths at full width on an NCCL process group
-               of one rank in a (1, 1) ("data", "model") DeviceMesh: the
-               serving phases' qwen3-8b (36 layers, w8a8_kernel) through
+               of one rank in a (1, 1) ("data", "model") DeviceMesh:
+               qwen3-8b at all 36 layers (w8a8_kernel) through
                launch.serve.static_generate, 8 prompts of 32 tokens from
                PRNGKey(1), 16 new, greedy, without a mesh and with the
                params laid out as DTensors by resolve_param_specs and
@@ -86,16 +89,21 @@ Phases (each prints one JSON line; any failure exits non-zero):
                a model axis of 16 (N 256, 64, 768, 9504; M 8 and 512)
                beside its plain version, bound and torch._int_mm.
 9. dryrun   -- the port's dry run (launch/dryrun.py): qwen3-8b x
-               decode_32k x w8a8 (all 36 layers) and granite-moe-1b-a400m
+               decode_32k x w8a8 (all 36 layers), granite-moe-1b-a400m
                x train_4k x none (12 of its 24 layers, to keep the phase
-               in its 90 s) traced on fake CUDA tensors on rank 0 of the
-               16 x 16 production mesh over a fake 256-rank group, one
-               child process each, both started at the phase's start (JAX's
-               keys; K1 recorded 36 x 7 + 1 times per decode step; a
-               decode cell's argument bytes, its caches split over
-               sequence, equal to JAX's layout's, printed beside the
-               constant figures of the whole-sequence layout); while
-               they run, the serving phases' qwen3-8b at decode 8 x 4096
+               in its 90 s) and qwen3-8b x train_4k x none (4 of its 36
+               layers) with and without --act-shard, traced on fake CUDA
+               tensors on rank 0 of the 16 x 16 production mesh over a
+               fake 256-rank group, one child process each, all started
+               at the phase's start (JAX's keys; K1 recorded 36 x 7 + 1
+               times per decode step; a decode cell's argument bytes,
+               its caches split over sequence, equal to JAX's layout's,
+               printed beside the constant figures of the whole-sequence
+               layout; the decode temp within 5 % (or 64 MiB) of its CPU
+               trace's; --act-shard's temp lower by the blocks' remat
+               carries' 15/16, flops equal); while
+               they run, the distributed phase's qwen3-8b (36 layers) at
+               decode 8 x 4096
                and prefill 4 x 2048 on the card through the mesh path on
                an NCCL group of one rank (params gathered per block, the
                decode caches split by cache_specs), traced and run for
@@ -107,28 +115,28 @@ Phases (each prints one JSON line; any failure exits non-zero):
 10. families -- the rest of the decoder-only family at published widths
                (depth cut where noted on each run's line), random weights
                from seed 0 frozen under w8a8_kernel (routers float),
-               greedy: moonshot-v1-16b-a3b (8 of 48 layers) and
-               granite-moe-1b-a400m (all 24) through Engine.generate, 4
+               greedy: moonshot-v1-16b-a3b (4 of 48 layers) and
+               granite-moe-1b-a400m (8 of 24) through Engine.generate, 4
                prompts of 64-512 tokens, 16 new (the 512-token prefill
-               drops tokens at capacity); h2o-danube-3-4b (all 24) with
+               drops tokens at capacity); h2o-danube-3-4b (8 of 24) with
                its bf16 ring cache, one 4608-token prompt, 32 new;
                deepseek-7b and stablelm-12b (4 of 30 / 40 layers) through
                the ContinuousEngine (chunked prefill 64, paged attention,
                int8 pool, the main phase's 8 prompts, 16 new), and
                stablelm-12b once more through Engine.generate with a
                2560-token prompt (attend_chunked); the state-space
-               families at full depth through Engine.generate, 32 new:
-               mamba2-1.3b (48 SSM layers) and zamba2-2.7b (54 SSM layers
-               and a shared attention block over 9 int8 KV caches), each
+               families through Engine.generate, 32 new: mamba2-1.3b (12
+               of 48 SSM layers) and zamba2-2.7b (12 of 54 SSM layers and
+               the shared attention block over 2 int8 KV caches), each
                with prompts of 64, 192, 512 and 1024 tokens, a batch of
                four 512-token prompts and one 4096-token prompt (16 SSD
                chunks), and one profiler pass over mamba2's decode steps;
                the multimodal families through Engine.generate:
-               whisper-large-v3 (all 32 encoder + 32 decoder layers) over
+               whisper-large-v3 (all 32 encoder, 8 of 32 decoder layers) over
                1500 seeded bf16 frames (30 s of audio) under 4- and
                64-token decoder prompts at batch 1 and 4, 32 new, an int8
                self-attention cache beside bf16 cross K/V; qwen2-vl-72b
-               (all 80 layers, or the depth the card's free memory holds,
+               (16 of 80 layers, or the depth the card's free memory holds,
                stated on its line) from seeded bf16 embeddings with
                Qwen2-VL's [3, B, S] positions: 64 text tokens, 16 + a
                16 x 16 image grid + 16, 64 + a 48 x 48 grid + 192 (2560,
@@ -136,7 +144,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
                Each run: every request OK, K1 launched exactly (stack
                passes) x (its per-pass count: layers x per-layer count,
                the shared block's 7 a group, the head) + whisper's
-               encoder passes x 192 and cross K/V projections x 64,
+               encoder passes x 192 and cross K/V projections x 2L,
                K2/K3 on the continuous runs, prefill logits within 1.5x
                the reordering floor (bit-identical to the plain versions'
                on the state-space and multimodal runs); the multimodal
@@ -1158,6 +1166,11 @@ PROMPT_LENS = (512, 64, 200, 96, 384, 128, 256, 80)
 ARRIVALS = (0, 0, 0, 2, 4, 8, 8, 16)
 MAX_NEW = 32
 SAMPLE_SEED, TEMPERATURE = 7, 0.8
+# The serving phases (main, static, blocking, durable) run qwen3-8b at 12
+# of its 36 layers: their time is the host's per-layer work, and at all 36
+# the script outgrew its time limit.  The distributed and dryrun phases
+# keep all 36 (K1 4,048 a mesh serve; 36 x 7 + 1 records a decode step).
+SERVE_LAYERS = 12
 
 
 def frozen_params(torch, cfg, device, cache=None):
@@ -1384,7 +1397,7 @@ def main_path(torch, cfg, cim_ops, paged_ops, *, device="cuda",
     # twins, and with the plain gather-then-attend reference, whose
     # attention sums the same values in yet another order.  The last pair
     # measures how far reordering alone moves the logits (the noise floor
-    # of a random-weight bf16 W8A8 model 36 layers deep).
+    # of a random-weight bf16 W8A8 model SERVE_LAYERS deep).
     runs = {"kernel": (False, ce.plan), "plain": (True, ce.plan),
             "reorder": (True, dataclasses.replace(ce.plan,
                                                   paged_attn=False))}
@@ -1485,10 +1498,11 @@ def static_path(torch, cfg, cim_ops, paged_ops, *, device="cuda",
     """The static engine (``Engine.generate`` over dense KV caches) at
     ``cfg``'s widths under w8a8_kernel: the 8 serving prompts, one call
     each (bucketed to 32), 32 new tokens, greedy with the kernels (K1 must
-    launch on every linear of every prefill and decode step), greedy with
-    the plain versions, and twice sampled with one key (identical
-    streams).  Prefill logits are gated as the main path's; the decode
-    step is timed greedy and sampled, and the sampler alone."""
+    launch on every linear of every prefill and decode step) and twice
+    sampled with one key (identical streams).  Prefill logits are gated
+    as the main path's, against the plain versions' prefill (whose
+    argmax is the plain greedy run's first token); the decode step is
+    timed greedy and sampled, and the sampler alone."""
     from repro_torch.serve import Engine, prng
 
     def sync():
@@ -1523,8 +1537,6 @@ def static_path(torch, cfg, cim_ops, paged_ops, *, device="cuda",
     reset_launches(cim_ops, paged_ops)
     greedy, run_greedy = serve(False)
     launches = read_launches(cim_ops, paged_ops)
-    with plain_versions(cim_ops, paged_ops):
-        greedy_plain, run_plain = serve(False)
     sampled_a, run_sampled_a = serve(True)
     sampled_b, run_sampled_b = serve(True)
 
@@ -1553,7 +1565,10 @@ def static_path(torch, cfg, cim_ops, paged_ops, *, device="cuda",
                 torch, params, cfg, p.numpy(),
                 dataclasses.replace(plan, paged_attn=False), chunk=chunk,
                 device=device))
-    gate, gate_failures = logit_gate(torch, pf_logits, greedy, greedy_plain)
+    # The plain greedy run's first tokens: its prefill's argmax (a whole
+    # plain run of the 8 prompts cost ~15-80 s of the script's limit).
+    first_plain = [lp.argmax().reshape(1) for lp in pf_logits["plain"]]
+    gate, gate_failures = logit_gate(torch, pf_logits, greedy, first_plain)
     failures += gate_failures
 
     # Time of one decode step at batch 1 after the longest prompt, greedy
@@ -1592,12 +1607,8 @@ def static_path(torch, cfg, cim_ops, paged_ops, *, device="cuda",
                               .shape[1]) for p in prompts],
               "init_s": init_s, "launches": launches,
               "k1_launches_expected": want_k1,
-              "runs": {"greedy": run_greedy, "greedy_plain": run_plain,
-                       "sampled": run_sampled_a,
+              "runs": {"greedy": run_greedy, "sampled": run_sampled_a,
                        "sampled_again": run_sampled_b},
-              "stream_agreement_plain": [
-                  float((a == b).float().mean()) for a, b in
-                  zip(greedy, greedy_plain)],
               "sampled_equal_greedy": [
                   float((a == b).float().mean()) for a, b in
                   zip(sampled_a, greedy)],
@@ -1994,17 +2005,19 @@ def durable_path(torch, cfg, cim_ops, paged_ops, *, device="cuda",
 # ---------------------------------------------------------------------------
 
 # Each run: (name, arch, layers kept (None: all), path).  Widths are the
-# published ones; only depth is cut, and the phase line states each cut.
+# published ones; only depth is cut (the host's per-layer work sets the
+# phase's time), and the phase line states each cut.  zamba2 keeps two of
+# its shared block's groups of 6, whisper all 32 encoder layers.
 FAMILY_RUNS = (
-    ("moe-a", "moonshot-v1-16b-a3b", 8, "generate"),
-    ("moe-b", "granite-moe-1b-a400m", None, "generate"),
-    ("swa", "h2o-danube-3-4b", None, "generate"),
+    ("moe-a", "moonshot-v1-16b-a3b", 4, "generate"),
+    ("moe-b", "granite-moe-1b-a400m", 8, "generate"),
+    ("swa", "h2o-danube-3-4b", 8, "generate"),
     ("dense-g1", "deepseek-7b", 4, "continuous"),
     ("dense-d160", "stablelm-12b", 4, "continuous"),
-    ("ssm", "mamba2-1.3b", None, "generate"),
-    ("hybrid", "zamba2-2.7b", None, "generate"),
-    ("encdec", "whisper-large-v3", None, "generate"),
-    ("mrope", "qwen2-vl-72b", None, "generate"),
+    ("ssm", "mamba2-1.3b", 12, "generate"),
+    ("hybrid", "zamba2-2.7b", 12, "generate"),
+    ("encdec", "whisper-large-v3", 8, "generate"),
+    ("mrope", "qwen2-vl-72b", 16, "generate"),
 )
 FAMILY_MOE_PROMPTS = (64, 192, 320, 512)   # whole 64-token chunks
 FAMILY_SWA_PROMPT = 4608                   # past the 4096 window, 9 x 512
@@ -3062,7 +3075,9 @@ def train_in_child(src: str) -> tuple:
 
 DIST_MESH = (1, 1)                 # ("data", "model") on the one card
 DIST_BATCH, DIST_PROMPT, DIST_NEW = 8, 32, 16
-DIST_TURNS = 3                      # timed serves, without and with the mesh
+# Timed serves, without and with the mesh: a turn on the card's shared
+# host can run 50 ms a step slow, and the median of 5 leaves two out.
+DIST_TURNS = 5
 # qwen3-8b's decode attention: B, H, KVH, D, S, valid positions.
 DIST_ATTN = (8, 32, 8, 128, 4096, 3001)
 DIST_PSUM_ELEMS = 16 * 2**20
@@ -3356,12 +3371,23 @@ def mesh_train_check(torch, device, cfg=None, batch_shape=TRAIN_BATCH
 # The dryrun phase: the production traces and their counts against the card
 # ---------------------------------------------------------------------------
 
-# (arch, shape, quant, layers kept (0: all)) traced on the card's path
-# over a fake 256-rank group.  granite-moe's train step is cut to 12 of
-# its 24 layers: its trace costs ~3 s a layer on the card's host, and the
-# whole cell (the sweep's, PERF.md) would take the phase past its 90 s.
-DRYRUN_CELLS = (("qwen3-8b", "decode_32k", "w8a8", 0),
-                ("granite-moe-1b-a400m", "train_4k", "none", 12))
+# (arch, shape, quant, layers kept (0: all), --act-shard) traced on the
+# card's path over a fake 256-rank group.  granite-moe's train step is
+# cut to 12 of its 24 layers: its trace costs ~3 s a layer on the card's
+# host, and the whole cell (the sweep's, PERF.md) would take the phase
+# past its 90 s.  qwen3-8b's train step, with and without the
+# residual stream d-sharded between blocks, is cut to 4 of its 36 layers
+# for the same reason (~25 s a layer).
+DRYRUN_CELLS = (("qwen3-8b", "decode_32k", "w8a8", 0, False),
+                ("granite-moe-1b-a400m", "train_4k", "none", 12, False),
+                ("qwen3-8b", "train_4k", "none", 4, False),
+                ("qwen3-8b", "train_4k", "none", 4, True))
+# qwen3-8b decode_32k w8a8's temp bytes on rank 0, traced on the CPU
+# path (``python -m repro_torch.launch.dryrun --arch qwen3-8b --shape
+# decode_32k --mesh single --quant w8a8 --device cpu``): the card's
+# trace holds it within DRYRUN_MEM_REL / DRYRUN_MEM_ABS (CUDA rounds each
+# block up to 512 bytes).
+DECODE_32K_CPU_TEMP = 213_995_809
 # The JAX package's dry-run keys (``train`` cells add ``microbatches``);
 # the port adds ``port``.
 DRYRUN_KEYS = {"arch", "shape", "quant", "params", "active_params",
@@ -3395,17 +3421,38 @@ def dryrun_children(src: str, out_dir: str) -> list:
     fill)."""
     env = dict(os.environ, PYTHONPATH=src)
     procs = []
-    for arch, shape, quant, layers in DRYRUN_CELLS:
+    for cell in DRYRUN_CELLS:
+        arch, shape, quant, layers, act_shard = cell
         cmd = [sys.executable, "-c", DRYRUN_CHILD, str(layers), "--arch",
                arch, "--shape", shape, "--mesh", "single", "--quant", quant,
-               "--device", "cuda", "--out", out_dir]
-        log = pathlib.Path(out_dir) / f"{arch}__{shape}.log"
-        with open(log, "w") as f:
-            procs.append(((arch, shape, quant, layers), time.perf_counter(),
+               "--device", "cuda", "--out", out_dir] \
+            + (["--act-shard"] if act_shard else [])
+        with open(dryrun_file(out_dir, cell, ".log"), "w") as f:
+            procs.append((cell, time.perf_counter(),
                           subprocess.Popen(cmd, env=env, cwd=ROOT, text=True,
                                            stdout=f,
                                            stderr=subprocess.STDOUT)))
     return procs
+
+
+def dryrun_file(out_dir: str, cell: tuple, suffix: str) -> pathlib.Path:
+    """A dry-run child's log (``.log``) or the JSON its CLI writes
+    (``.json``: ``launch.dryrun``'s file name)."""
+    arch, shape, quant, _, act_shard = cell
+    tag = "__actshard" if act_shard else ""
+    if suffix == ".log":
+        return pathlib.Path(out_dir) / f"{arch}__{shape}{tag}.log"
+    return pathlib.Path(out_dir) / f"{arch}__{shape}__single__{quant}{tag}.json"
+
+
+def act_shard_drop(cfg, res: dict, layers: int) -> float:
+    """The temp bytes ``--act-shard`` takes off a train cell of ``cfg``
+    cut to ``layers``: each block's remat carry, its rank's rows of a
+    microbatch x seq x d in bf16, held as its d-chunk, (m - 1) / m of it
+    (the 16 x 16 mesh: m = 16, 16 data ranks)."""
+    m, dp = 16, 16
+    rows = res["global_batch"] // dp // res["microbatches"]
+    return layers * rows * res["seq_len"] * cfg.d_model * 2 * (m - 1) / m
 
 
 # A constant, not measured here: the decode cell's figures in the port's
@@ -3415,12 +3462,13 @@ WHOLE_SEQ_GIB_CONSTANT = {("qwen3-8b", "decode_32k", "w8a8"):
                           {"argument": 36.10, "temp": 5.77}}
 
 
-def dryrun_cell_summary(res: dict, seconds: float, layers: int) -> dict:
+def dryrun_cell_summary(res: dict, seconds: float, layers: int,
+                        act_shard: bool) -> dict:
     k1 = res.get("port", {}).get("kernels", {}).get("cim_matmul", {})
     port = res.get("port", {})
     return {"arch": res["arch"], "shape": res["shape"],
             "quant": res["quant"], "status": res["status"],
-            "layers": layers or "all",
+            "layers": layers or "all", "act_shard": act_shard,
             "seconds": seconds, "lower_s": res.get("lower_s"),
             "compile_s": res.get("compile_s"),
             "flops_per_device": res.get("flops_per_device"),
@@ -3569,9 +3617,13 @@ def dryrun_path(torch, cfg, cim_ops, paged_ops, *, src=str(ROOT / "src"),
        tensors, nothing allocated), one child process per cell, all
        started here at once: each writes JAX's keys (and ``port``), and
        qwen3-8b's decode records K1 on all 36 x 7 projections and the
-       head.
-    2. Meanwhile, here: the serving phases' qwen3-8b (``cfg``, all its
-       layers, frozen under w8a8_kernel) at DRYRUN_CHECKS, one card,
+       head, its temp within 5 % (or 64 MiB) of the CPU trace's
+       (DECODE_32K_CPU_TEMP: the token lookup in the rank's d-shard of
+       the table); qwen3-8b's train step with ``--act-shard`` has the
+       flops of the one without and a temp lower by at least the
+       blocks' remat carries' (m - 1) / m (``act_shard_drop``).
+    2. Meanwhile, here: the distributed phase's qwen3-8b (``cfg``, all
+       its layers, frozen under w8a8_kernel) at DRYRUN_CHECKS, one card,
        traced on fake tensors and run for real under the same counter:
        flops, traffic bytes and K1 records equal, K1's launches equal its
        records, the trace's peak within 5 % (or 64 MiB) of the real
@@ -3598,21 +3650,20 @@ def dryrun_path(torch, cfg, cim_ops, paged_ops, *, src=str(ROOT / "src"),
                 failures += fails
             result["card_check"] = checks
             launches = read_launches(cim_ops, paged_ops)
-            cells = []
-            for (arch, shape, quant, layers), t0, proc in procs:
+            cells, train = [], {}
+            for spec, t0, proc in procs:
+                arch, shape, quant, layers, act_shard = spec
                 proc.wait(timeout=600)
                 seconds = time.perf_counter() - t0
-                out = (pathlib.Path(out_dir) / f"{arch}__{shape}.log"
-                       ).read_text()
-                path = pathlib.Path(out_dir) / \
-                    f"{arch}__{shape}__single__{quant}.json"
+                out = dryrun_file(out_dir, spec, ".log").read_text()
+                path = dryrun_file(out_dir, spec, ".json")
                 if proc.returncode != 0 or not path.exists():
                     failures.append(f"dryrun: {arch} x {shape} failed "
                                     f"(exit {proc.returncode}): "
                                     f"{out[-1500:]}")
                     continue
                 res = json.loads(path.read_text())
-                cell = dryrun_cell_summary(res, seconds, layers)
+                cell = dryrun_cell_summary(res, seconds, layers, act_shard)
                 cell["line"] = next((ln for ln in out.splitlines()
                                      if ln.startswith("[dryrun]")), None)
                 cells.append(cell)
@@ -3629,10 +3680,41 @@ def dryrun_path(torch, cfg, cim_ops, paged_ops, *, src=str(ROOT / "src"),
                         f"dryrun: {arch} x {shape} holds "
                         f"{mem.get('argument_bytes')} argument bytes a rank,"
                         f" JAX's layout {cell['jax_layout_argument_bytes']}")
-                if arch == "qwen3-8b" and cell["k1_records"] != 36 * 7 + 1:
-                    failures.append(f"dryrun: qwen3-8b decode recorded "
-                                    f"{cell['k1_records']} K1 calls, want "
-                                    f"{36 * 7 + 1}")
+                if arch == "qwen3-8b" and res["kind"] == "decode":
+                    if cell["k1_records"] != 36 * 7 + 1:
+                        failures.append(
+                            f"dryrun: qwen3-8b decode recorded "
+                            f"{cell['k1_records']} K1 calls, want "
+                            f"{36 * 7 + 1}")
+                    # The shard-local lookup's temp, as the CPU trace.
+                    temp = mem.get("temp_bytes", 0)
+                    cell["cpu_trace_temp"] = DECODE_32K_CPU_TEMP
+                    if abs(temp - DECODE_32K_CPU_TEMP) > max(
+                            DRYRUN_MEM_REL * DECODE_32K_CPU_TEMP,
+                            DRYRUN_MEM_ABS):
+                        failures.append(
+                            f"dryrun: qwen3-8b decode temp {temp} B, the "
+                            f"CPU trace's {DECODE_32K_CPU_TEMP}")
+                if arch == "qwen3-8b" and res["kind"] == "train":
+                    train[act_shard] = (res, layers)
+            if len(train) == 2:
+                (off, layers), (on, _) = train[False], train[True]
+                drop = off["memory"]["temp_bytes"] - \
+                    on["memory"]["temp_bytes"]
+                want = act_shard_drop(cfg, off, layers)
+                result["act_shard"] = {
+                    "layers": layers, "temp_drop": drop,
+                    "carry_share": want,
+                    "flops_equal": on["flops_per_device"]
+                    == off["flops_per_device"]}
+                if drop < want or not result["act_shard"]["flops_equal"]:
+                    failures.append(f"dryrun: --act-shard took {drop} B "
+                                    f"off qwen3-8b train_4k's temp (want "
+                                    f">= {want:.0f}), flops equal: "
+                                    f"{result['act_shard']['flops_equal']}")
+            elif not failures:
+                failures.append("dryrun: the qwen3-8b train_4k pair did "
+                                "not run")
             result["production"] = cells
         finally:
             for _, _, proc in procs:
@@ -3912,16 +3994,18 @@ def main() -> int:
         from repro_torch import configs
         qwen = dataclasses.replace(configs.get_config("qwen3-8b"),
                                    kv_cache_dtype="int8")
-        # The serving phases share one model, made in the first.
+        serving = dataclasses.replace(qwen, n_layers=SERVE_LAYERS)
+        # The serving phases share one model, made in the first; the
+        # distributed and dryrun phases another at all 36 layers.
         served: dict = {}
         paths = (
-            ("main", lambda: main_path(torch, qwen, cim_ops, paged_ops,
+            ("main", lambda: main_path(torch, serving, cim_ops, paged_ops,
                                        cache=served)),
-            ("static", lambda: static_path(torch, qwen, cim_ops, paged_ops,
-                                           cache=served)),
-            ("blocking", lambda: blocking_path(torch, qwen, cim_ops,
+            ("static", lambda: static_path(torch, serving, cim_ops,
+                                           paged_ops, cache=served)),
+            ("blocking", lambda: blocking_path(torch, serving, cim_ops,
                                                paged_ops, cache=served)),
-            ("durable", lambda: durable_path(torch, qwen, cim_ops,
+            ("durable", lambda: durable_path(torch, serving, cim_ops,
                                              paged_ops, cache=served)),
             ("distributed", lambda: distributed_path(
                 torch, qwen, cim_ops, paged_ops, cache=served)),

@@ -200,18 +200,31 @@ def cache_specs(mesh, caches_shape_tree, cfg, batch: int,
     return walk("", caches_shape_tree)
 
 
-def constrain(x, dim_axes: dict):
+def constrain(x, dim_axes: dict, *, carry: bool = False):
     """Mesh-aware sharding constraint usable from model code.
 
     ``dim_axes`` maps dim -> mesh axis name(s) ('data' / 'model' /
     'batch', 'batch' being ('pod', 'data') when the mesh has a pod axis)
     or None to force that dim replicated.  Dims not listed keep their
     placement.  On a DTensor it is a ``redistribute`` to that layout; a
-    dim that does not divide, or an axis the mesh lacks, is skipped.  On
-    any other tensor it is a no-op, as JAX's is outside a mesh: the
+    dim that does not divide, or an axis the mesh lacks, is skipped.
+
+    On any other tensor it is a no-op, as JAX's is outside a mesh: the
     port's mesh path (``distributed/spmd.py``) runs the model on each
-    rank's local tensors."""
+    rank's local tensors, its rows of the batch already, and computes
+    the tensors of JAX's other sites whole on every rank.  The one case
+    is ``carry``, a tensor carried from one block to the next (JAX's
+    residual-stream site under ``act_shard``): inside ``spmd.scope`` it
+    is held as this rank's chunk of each dim mapped to 'model'
+    (``spmd.model_shard``: a copy, no communication; skipped where the
+    dim does not divide or the axis has one rank), and the next block
+    all-gathers it at its entry (``spmd.model_whole``)."""
     if not isinstance(x, DTensor):
+        if carry:
+            from repro_torch.distributed import spmd  # spmd imports this
+            for dim, ax in dim_axes.items():
+                if ax == "model":
+                    x = spmd.model_shard(x, dim)
         return x
     mesh = x.device_mesh
     names = _names(mesh)

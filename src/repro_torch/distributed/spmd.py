@@ -11,11 +11,18 @@ what XLA's SPMD partitioner makes of the JAX package's pjit).
   A row-parallel linear (o, down, out_proj: input dim on 'model') is
   gathered to its full K, as XLA does around an opaque custom call.
 * **Activations** hold this rank's rows of the global batch (data and pod
-  axes) and are replicated over 'model'.  A column-parallel linear
-  (:class:`ColumnShard`) computes its local columns -- K1's epilogue is
-  per column, so they are the full product's -- and all-gathers them
-  over 'model'; the expert banks (:class:`ExpertShard`) run this rank's
-  experts and all-gather their outputs.
+  axes) and are replicated over 'model', but for the residual stream
+  where JAX holds it d-sharded: the token lookup runs in the table's
+  model shard (:func:`gather_table`, JAX's ``embed_sharded`` layout) and
+  gives this rank's d-chunk of the rows, and under ``act_shard`` a dense
+  block's output is stored as its d-chunk (``sharding.constrain(...,
+  carry=True)``, :func:`model_shard`); the next block, or the final
+  norm, all-gathers the chunks at its entry (:func:`model_whole`).  A
+  column-parallel linear (:class:`ColumnShard`) computes its local
+  columns -- K1's epilogue is per column, so they are the full
+  product's -- and all-gathers them over 'model'; the expert banks
+  (:class:`ExpertShard`) run this rank's experts and all-gather their
+  outputs.
 * Reductions over the global batch (the MoE balance loss's means, the
   loss's token count) are all-reduced over the batch axes, the
   gradients reduce-scattered (below); :func:`batch_mean` is the identity
@@ -23,8 +30,9 @@ what XLA's SPMD partitioner makes of the JAX package's pjit).
 
 * **Memory**: the parameters stay at rest; the model code gathers
   them where it uses them, one block at a time (:func:`gather_block`,
-  called inside the stack loops: the embedding, the final norms and the
-  head at their one use), by :func:`localize`'s rules, and drops the
+  called inside the stack loops: the final norms and the head at their
+  one use; the embedding keeps its model shard, :func:`gather_table`),
+  by :func:`localize`'s rules, and drops the
   gathered tensors before the next block's gather.  A rank holds its
   shards, one gathered block and its activations: JAX's layout, where
   XLA gathers each layer's parameters inside the layer.
@@ -32,8 +40,10 @@ what XLA's SPMD partitioner makes of the JAX package's pjit).
   whole through :class:`Resting` leaves, a differentiable gather whose
   backward sums the gradient over the batch axes with a reduce-scatter
   on the leaf's data-sharded dim and keeps this rank's slice over
-  'model' without communication (activations are replicated there): the
-  train step receives gradient shards, never the full gradients.  Put
+  'model' without communication (activations and their gradients are
+  whole and the same on every rank there; the table's lookup gradient
+  is its model shard's already): the train step receives gradient
+  shards, never the full gradients.  Put
   inside a remat region, the checkpoint keeps the resting shards and the
   block input, and the recompute gathers again.
 * **Decode caches** may hold this rank's shards as
@@ -202,13 +212,17 @@ def _chunk(x: torch.Tensor, dim: int, n: int, i: int) -> torch.Tensor:
     return parts[i] if i < len(parts) else x.narrow(dim, 0, 0)
 
 
-def _rest_grad(g: torch.Tensor, rest: Resting) -> torch.Tensor:
+def _rest_grad(g: torch.Tensor, rest: Resting,
+               keep_model: bool = False) -> torch.Tensor:
     """A leaf's full gradient from this rank's rows -> the global
     gradient's shard in the leaf's resting layout: over each batch axis
     a reduce-scatter on the dim the leaf shards there (an all-reduce,
     then this rank's piece, where the dim does not divide; an all-reduce
     where the leaf is replicated), over 'model' this rank's piece
-    without communication (every rank of it holds the same gradient)."""
+    without communication (every rank of it holds the same gradient).
+    With ``keep_model`` ``g`` is the gradient of the leaf's model shard
+    already (it was gathered over the batch axes only): nothing is
+    taken over 'model'."""
     mesh = rest.mesh
     batch = sharding.batch_axes(mesh)
     for name, p in zip(mesh.mesh_dim_names, rest.placements):
@@ -224,27 +238,28 @@ def _rest_grad(g: torch.Tensor, rest: Resting) -> torch.Tensor:
                 continue
             g = g.clone()
             dist.all_reduce(g, op=dist.ReduceOp.SUM, group=group)
-        if p.is_shard():
+        if p.is_shard() and not (keep_model and name == "model"):
             g = _chunk(g, p.dim, n, i)
     return g.contiguous()
 
 
 class _GatherRest(torch.autograd.Function):
-    """A :class:`Resting` leaf gathered whole; the backward is
+    """A :class:`Resting` leaf gathered whole (or, with ``keep_model``,
+    over every mesh dim but 'model'); the backward is
     :func:`_rest_grad`."""
 
     @staticmethod
-    def forward(ctx, local, rest):
-        ctx.rest = rest
+    def forward(ctx, local, rest, keep_model):
+        ctx.rest, ctx.keep_model = rest, keep_model
         x = DTensor.from_local(local.detach(), rest.mesh, rest.placements,
                                run_check=False, shape=rest.shape,
                                stride=rest.stride)
-        out = _gathered(x, False)
+        out = _gathered(x, keep_model)
         return out.view_as(out)
 
     @staticmethod
     def backward(ctx, g):
-        return _rest_grad(g, ctx.rest), None
+        return _rest_grad(g, ctx.rest, ctx.keep_model), None, None
 
 
 def _leaf_plan(x, keep_model: bool):
@@ -254,7 +269,7 @@ def _leaf_plan(x, keep_model: bool):
     placements already: its local tensor, a view of the resting
     shard)."""
     if isinstance(x, Resting):
-        return (lambda r: _GatherRest.apply(r.local, r)), False
+        return (lambda r: _GatherRest.apply(r.local, r, keep_model)), False
     if not isinstance(x, DTensor):
         return (lambda v: v), True
     want = _want(x, keep_model)
@@ -325,11 +340,114 @@ def gather_block(tree):
     s = _SCOPE.get()
     if s is None:
         return tree
-    hit = s.plans.get(id(tree))
+    return _run_plan(s, id(tree), tree, lambda: _plan(tree, s.keep_model))
+
+
+def _run_plan(s: _Scope, key, tree, make):
+    """``tree`` gathered by the scope's plan under ``key``, worked out by
+    ``make()`` at the first gather of this subtree in the scope."""
+    hit = s.plans.get(key)
     if hit is None or hit[0] is not tree:
-        run, fixed = _plan(tree, s.keep_model)
-        hit = s.plans[id(tree)] = (tree, run, run(tree) if fixed else None)
+        run, fixed = make()
+        hit = s.plans[key] = (tree, run, run(tree) if fixed else None)
     return hit[1](tree) if hit[2] is None else hit[2]
+
+
+def _splits_d(t) -> bool:
+    """Whether the embedding table ``t`` (a DTensor, or a
+    :class:`Resting` leaf) rests with its d dim split in equal parts
+    over more than one 'model' rank."""
+    if isinstance(t, Resting):
+        mesh, placements, shape = t.mesh, t.placements, t.shape
+    elif isinstance(t, DTensor):
+        mesh, placements, shape = t.device_mesh, t.placements, t.shape
+    else:
+        return False
+    names = tuple(mesh.mesh_dim_names)
+    if "model" not in names:
+        return False
+    m = _model_size(mesh)
+    p = placements[names.index("model")]
+    return m > 1 and p.is_shard() and p.dim == 1 and shape[1] % m == 0
+
+
+def gather_table(p: dict) -> dict:
+    """The embedding's resting params -> ``{"table": ...}`` for the token
+    lookup: this rank's model shard ``[V, d/m]`` of the table, as JAX
+    lays it out (``embed_sharded``: the lookup is shard-local); over the
+    batch axes only what the table's placement shards there moves.  Rows
+    looked up in it are this rank's d-chunk of the stream
+    (:func:`model_whole` makes them whole).  In training the backward
+    gives the shard's gradient summed over the batch axes.  A table whose
+    d does not split in equal parts over 'model' is gathered whole, as
+    :func:`gather_block` gathers it (which the tied head reads).  The
+    identity outside :func:`scope`."""
+    s = _SCOPE.get()
+    if s is None:
+        return p
+
+    def make():
+        t = p["table"]
+        run, fixed = _leaf_plan(t, _splits_d(t))
+        return (lambda n: {"table": run(n["table"])}), fixed
+    return _run_plan(s, ("table", id(p)), p, make)
+
+
+class _ToShard(torch.autograd.Function):
+    """A replicated activation -> this rank's chunk of ``dim`` over
+    'model', a copy of its own (no communication); the backward
+    all-gathers the gradient's chunks."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        part = _chunk(x, dim, _model_size(mesh), mesh.get_local_rank("model"))
+        return part.clone(memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _model_gather(g, ctx.mesh, ctx.dim), None, None
+
+
+class _ToWhole(torch.autograd.Function):
+    """This rank's chunk of ``dim`` -> the chunks of 'model' all-gathered;
+    the backward keeps this rank's chunk of the gradient (every rank of
+    'model' holds the same whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return _model_gather(x, mesh, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = ctx.mesh
+        return _chunk(g, ctx.dim, _model_size(mesh),
+                      mesh.get_local_rank("model")).contiguous(), None, None
+
+
+def model_shard(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """A replicated activation -> this rank's chunk of ``dim`` over the
+    scope's 'model' axis (its backward all-gathers).  ``x`` itself
+    outside :func:`scope`, on a model axis of one, or where ``dim`` does
+    not divide (as JAX's constraint skips it)."""
+    mesh = current_mesh()
+    if mesh is None:
+        return x
+    m = _model_size(mesh)
+    if m == 1 or x.shape[dim] % m:
+        return x
+    return _ToShard.apply(x, mesh, dim % x.ndim)
+
+
+def model_whole(x: torch.Tensor, width: int) -> torch.Tensor:
+    """The residual stream ``[..., width]``: ``x`` itself where it is
+    whole, else this rank's d-chunk (of :func:`model_shard` or a lookup
+    in :func:`gather_table`'s shard) all-gathered over the scope's
+    'model' axis (its backward keeps this rank's chunk)."""
+    if x.shape[-1] == width:
+        return x
+    return _ToWhole.apply(x, current_mesh(), x.ndim - 1)
 
 
 class SeqShard(dict):

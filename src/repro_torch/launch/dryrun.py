@@ -28,8 +28,9 @@ shards as ``sharding.cache_specs`` lays them out (``spmd.split_caches``:
 the KV sequence over 'model', SSM states by heads), as the JAX package's
 dry run lays them out, and ``--no-seq-shard`` lays them out with
 ``seq_shard=False`` (``port.cache_seq_shard`` says which).
-``--act-shard`` is accepted but changes nothing (``port.not_applied``
-says so).  ``--quant w8a8`` deploys every
+``--act-shard`` stores the residual stream d-sharded over 'model'
+between dense blocks, as the JAX package's ``dense_block`` does (one
+all-gather a block).  ``--quant w8a8`` deploys every
 linear but the routers on K1 (``w8a8_kernel``), as the JAX package's
 ``w8a8`` deploys them on its fused kernel.
 
@@ -328,7 +329,6 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
                             act_shard=act_shard, device=device, mesh=mesh)
         finally:
             torch.distributed.destroy_process_group()
-    not_applied = ["--act-shard"] if act_shard else []
     t0 = time.time()
     with FakeTensorMode(allow_non_fake_inputs=True):
         cell, meta = build_cell(arch, shape_name, mesh, quant=quant,
@@ -369,7 +369,6 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
                 "port": {
                     "device": dev.type,
                     "kernels": agg["kernels"],
-                    "not_applied": not_applied,
                     "cache_seq_shard": cell.seq_shard,
                     "jax_layout_argument_bytes":
                         arg_bytes - cell.over_jax_layout,
@@ -382,8 +381,6 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
                   f"temp={result['memory']['temp_bytes']/2**30:.2f}GiB "
                   f"coll={sum(c['wire_bytes'] for c in agg['collectives'].values()):.3e}B "
                   f"K1={agg['kernels'].get('cim_matmul', {}).get('records', 0)}")
-    if cell is None and not_applied:
-        result["port"] = {"device": dev.type, "not_applied": not_applied}
     if out_json:
         os.makedirs(os.path.dirname(out_json) or ".", exist_ok=True)
         with open(out_json, "w") as f:
@@ -410,8 +407,8 @@ def main(argv=None):
                     help="int8 KV cache (decode shapes)")
     ap.add_argument("--ssd-chunk", type=int, default=0)
     ap.add_argument("--act-shard", action="store_true",
-                    help="d_model-sharded residual stream between blocks "
-                         "(a no-op in the port's mesh path)")
+                    help="d_model-sharded residual stream between "
+                         "dense blocks")
     ap.add_argument("--cf", type=float, default=0.0,
                     help="MoE capacity factor override")
     ap.add_argument("--all", action="store_true",

@@ -24,8 +24,11 @@ Batch keys (which are present depends on the arch's frontend):
   length    the true prompt length of a right-padded ``tokens`` batch
 
 On a mesh (``distributed/spmd.py``) the params rest as DTensors: the
-embedding, the final norms and the head are gathered at their one use
-(``spmd.gather_block``), the blocks inside the stack's loops.
+final norms and the head are gathered at their one use
+(``spmd.gather_block``), the blocks inside the stack's loops; the token
+lookup runs in the rank's d-shard of the table (``spmd.gather_table``)
+and the stream is made whole before each final norm
+(``spmd.model_whole``).
 """
 from __future__ import annotations
 
@@ -189,7 +192,19 @@ def _embed_inputs(params, batch, cfg):
     batch has them, else the token embedding."""
     if "embeds" in batch:
         return batch["embeds"].to(_dtype(cfg))
-    return layers.embed(spmd.gather_block(params["embed"]), batch["tokens"])
+    return _embed_tokens(params, batch["tokens"], cfg)
+
+
+def _embed_tokens(params, tokens, cfg):
+    """The token embedding: on a mesh looked up in this rank's d-shard of
+    the table (``spmd.gather_table``, JAX's shard-local lookup) and the
+    rows made whole, unless the stack's first block is a dense block
+    under ``act_shard``, which takes its input as the d-chunk, as it
+    takes the previous block's."""
+    x = layers.embed(spmd.gather_table(params["embed"]), tokens)
+    if cfg.act_shard and cfg.arch_type in ("dense", "hybrid"):
+        return x
+    return spmd.model_whole(x, cfg.d_model)
 
 
 def _encoder_out(params, batch, cfg, remat=False, mode=None):
@@ -200,8 +215,8 @@ def _encoder_out(params, batch, cfg, remat=False, mode=None):
     h = transformer.apply_encoder(params["stack"],
                                   batch["frames"].to(_dtype(cfg)), cfg,
                                   remat=remat, mode=mode)
-    return layers.rmsnorm(spmd.gather_block(params["enc_final_norm"]), h,
-                          cfg.norm_eps)
+    return layers.rmsnorm(spmd.gather_block(params["enc_final_norm"]),
+                          spmd.model_whole(h, cfg.d_model), cfg.norm_eps)
 
 
 def forward(params, batch, cfg, *, train: bool = False,
@@ -218,7 +233,8 @@ def forward(params, batch, cfg, *, train: bool = False,
                                      positions=batch.get("positions"),
                                      remat=remat, remat_policy=remat_policy,
                                      mode=mode, enc_out=enc_out)
-    return layers.rmsnorm(spmd.gather_block(params["final_norm"]), h,
+    return layers.rmsnorm(spmd.gather_block(params["final_norm"]),
+                          spmd.model_whole(h, cfg.d_model),
                           cfg.norm_eps), aux
 
 
@@ -330,8 +346,8 @@ def prefill(params, batch, cfg, *, max_len: int, mode=None):
         length = torch.as_tensor(length, device=dev).to(torch.int32)
         h_last = h.index_select(1, (length.long() - 1).reshape(1))
         caches["kv"]["len"].sub_((s - length).to(torch.int32))
-    h = layers.rmsnorm(spmd.gather_block(params["final_norm"]), h_last,
-                       cfg.norm_eps)
+    h = layers.rmsnorm(spmd.gather_block(params["final_norm"]),
+                       spmd.model_whole(h_last, cfg.d_model), cfg.norm_eps)
     return logits_fn(params, h, cfg, mode), caches
 
 
@@ -370,7 +386,7 @@ def prefill_chunk(params, tokens, cfg, *, pages, block_tables, pos, n_tok,
     rows actually prefilling.  Returns ``(logits [B, V] at each row's last
     valid position, pages)``."""
     dev = tokens.device
-    x = layers.embed(spmd.gather_block(params["embed"]), tokens)
+    x = _embed_tokens(params, tokens, cfg)
     n_tok = torch.as_tensor(n_tok, dtype=torch.int32, device=dev)
     caches = {"kv": pages, "block_tables": block_tables,
               "lens": torch.as_tensor(pos, dtype=torch.int32, device=dev),
@@ -379,8 +395,8 @@ def prefill_chunk(params, tokens, cfg, *, pages, block_tables, pos, n_tok,
         caches["write_mask"] = torch.as_tensor(write_mask, device=dev).bool()
     h, caches = transformer.decode_stack(params["stack"], x, cfg, caches,
                                          mode=mode)
-    h = layers.rmsnorm(spmd.gather_block(params["final_norm"]), h,
-                       cfg.norm_eps)
+    h = layers.rmsnorm(spmd.gather_block(params["final_norm"]),
+                       spmd.model_whole(h, cfg.d_model), cfg.norm_eps)
     idx = torch.clamp(n_tok.long() - 1, 0, tokens.shape[1] - 1)
     h_last = torch.gather(h, 1, idx[:, None, None].expand(-1, 1,
                                                           h.shape[-1]))
@@ -396,6 +412,6 @@ def decode_step(params, batch, caches, cfg, *, mode=None):
     h, caches = transformer.decode_stack(params["stack"], x, cfg, caches,
                                          positions=batch.get("positions"),
                                          mode=mode)
-    h = layers.rmsnorm(spmd.gather_block(params["final_norm"]), h,
-                       cfg.norm_eps)
+    h = layers.rmsnorm(spmd.gather_block(params["final_norm"]),
+                       spmd.model_whole(h, cfg.d_model), cfg.norm_eps)
     return logits_fn(params, h, cfg, mode), caches

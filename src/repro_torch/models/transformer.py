@@ -23,15 +23,18 @@ resting parameters where the block runs (``spmd.gather_block``, inside
 the remat region when training) and passes them straight on, so one
 gathered block is alive at a time; a decode step's caches may be this
 rank's shards (``spmd.layer_cache``: a sequence-split KV cache, SSM
-states split by heads, gathered per layer).
+states split by heads, gathered per layer).  A dense or SSM block takes
+the residual stream whole at its entry (``spmd.model_whole``), inside
+its remat region: under ``act_shard`` a dense block stores its output
+as this rank's d-chunk, JAX's layout, so a checkpoint keeps the chunk.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import quant
-# ``constrain`` sits at the JAX package's sites; it redistributes DTensors
-# only, so on the mesh path (local tensors, distributed/spmd.py) it is inert.
+# ``constrain`` sits at the JAX package's sites; on the mesh path's local
+# tensors (distributed/spmd.py) it acts only at the residual stream's.
 from repro_torch.distributed import spmd
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models import attention as attn_lib
@@ -60,6 +63,7 @@ def dense_block_pspec(cfg, frozen=False) -> dict:
 
 def dense_block(p, x, cfg, *, cache=None, positions=None, causal=True,
                 mode=None):
+    x = spmd.model_whole(x, cfg.d_model)
     h, new_cache = attn_lib.attention(
         p["attn"], layers.rmsnorm(p["attn_norm"], x, cfg.norm_eps), cfg,
         positions=positions, causal=causal, kv_cache=cache, mode=mode)
@@ -70,7 +74,7 @@ def dense_block(p, x, cfg, *, cache=None, positions=None, causal=True,
     if getattr(cfg, "act_shard", False):
         # JAX's site for the residual stream d-sharded between blocks
         # (remat carries shrink by the TP degree there).
-        x = constrain(x, {0: "batch", 2: "model"})
+        x = constrain(x, {0: "batch", 2: "model"}, carry=True)
     return x, new_cache
 
 
@@ -119,6 +123,8 @@ def ssm_block_pspec(cfg) -> dict:
 
 def ssm_block(p, x, cfg, *, state=None, mode=None,
               return_final_state: bool = False):
+    # zamba2's shared dense block may hand over its d-chunk.
+    x = spmd.model_whole(x, cfg.d_model)
     h, new_state = mamba2.mamba2_block(
         p["mamba"], layers.rmsnorm(p["norm"], x, cfg.norm_eps), cfg,
         state=state, mode=mode, return_final_state=return_final_state)

@@ -31,6 +31,14 @@ record).  On the 2 x 2 ("data", "model") mesh:
 
 On a 4 x 1 mesh, where the two layouts agree, flops and argument bytes
 are exactly JAX's on every cell traced there.
+
+At production size, qwen3-8b decode_32k w8a8 on rank 0 of the fake
+16 x 16 group, the port's token lookup in the rank's d-shard of the
+table (``spmd.gather_table``) against the table gathered whole
+(``spmd.gather_block``, the lookup before it): the same flops and
+argument bytes (JAX's layout), one all-gather of the rank's rows in
+place of the table's, and a temp lower by at least the table less its
+shard.
 """
 import json
 import os
@@ -148,12 +156,29 @@ print("RESULT " + json.dumps(res))
 """
 
 
+_PROD = _COMMON + """
+import torch
+torch.set_num_threads(1)
+from repro_torch.distributed import spmd
+from repro_torch.launch import dryrun
+res = {}
+for lookup in ("shard", "whole"):
+    if lookup == "whole":
+        spmd.gather_table = spmd.gather_block
+    r = dryrun.run_cell("qwen3-8b", "decode_32k", "single", quant="w8a8",
+                        device="cpu")
+    r.pop("top_ops")
+    res[lookup] = r
+print("RESULT " + json.dumps(res))
+"""
+
+
 @pytest.fixture(scope="module")
 def results():
     """Both sides' cells; JAX's two meshes compile in two processes beside
-    the port's, all at once."""
+    the port's and its production decode cell, all at once."""
     runs = (("jax", _JAX, ("2x2",)), ("jax", _JAX, ("4x1",)),
-            ("port", _PORT, ("2x2", "4x1")))
+            ("port", _PORT, ("2x2", "4x1")), ("prod", _PROD, ()))
     procs = [(side, subprocess.Popen(
         [sys.executable, "-c", code % {"cells": CELLS,
                                        "cells_4x1": CELLS_4X1,
@@ -161,7 +186,7 @@ def results():
                                        "meshes": meshes}],
         cwd=ROOT, text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE))
         for side, code, meshes in runs]
-    out: dict = {"jax": {}, "port": {}}
+    out: dict = {"jax": {}, "port": {}, "prod": {}}
     for side, p in procs:
         stdout, stderr = p.communicate(timeout=300)
         assert p.returncode == 0, f"{side}: {stderr[-3000:]}"
@@ -320,6 +345,26 @@ def test_layouts_agree_on_4x1(results):
             ref["memory"]["argument_bytes"], key
     k1 = port["qwen3-8b/d_small/w8a8"]["port"]["kernels"]["cim_matmul"]
     assert k1["ops"] == _k1_ops("qwen3-8b", "d_small", 1, 1)
+
+
+def test_production_decode_lookup_is_shard_local(results):
+    from repro_torch import configs
+    shard, whole = results["prod"]["shard"], results["prod"]["whole"]
+    cfg = configs.get_config("qwen3-8b")
+    g = 16                                  # the 'model' axis
+    table = cfg.padded_vocab * cfg.d_model * 2
+    rows = 128 // 16 * cfg.d_model * 2      # this rank's 8 rows, bf16
+    for r in (shard, whole):
+        assert r["memory"]["argument_bytes"] == 2_524_963_108
+        assert r["port"]["jax_layout_argument_bytes"] == 2_524_963_108
+    assert shard["flops_per_device"] == whole["flops_per_device"]
+    a, b = (r["collectives"]["all-gather"] for r in (shard, whole))
+    assert a["count"] == b["count"]
+    assert b["payload_bytes"] - a["payload_bytes"] == (table - rows) * g
+    drop = whole["memory"]["temp_bytes"] - shard["memory"]["temp_bytes"]
+    print(f"temp {whole['memory']['temp_bytes']} -> "
+          f"{shard['memory']['temp_bytes']} B; the table {table} B")
+    assert drop >= table * (g - 1) / g
 
 
 def test_dryrun_module_needs_no_card_for_cpu():
