@@ -35,15 +35,31 @@ Phases (each prints one JSON line; any failure exits non-zero):
                deepseek-7b's G = 1 and stablelm-12b's D = 160.
 4. main     -- serves 8 requests through the port's ContinuousEngine at
                qwen3-8b's widths and SERVE_LAYERS = 12 of its 36 layers
-               (the serving phases 4-7 share this model; w8a8_kernel plan,
-               paged attention,
-               chunked prefill, int8 KV pool, random weights from a seed),
+               (main, static, blocking and durable share this model;
+               w8a8_kernel plan, paged attention, chunked prefill, int8
+               KV pool, random weights from a seed),
                checks every request is OK and every kernel launched,
                serves them once more with CUDA events around each kernel
                wrapper and the decode merge (device time by kernel, K1's
                split into decode and prefill calls, its own line), and
                replays the requests through the plain versions.
-5. static   -- the static engine (Engine.generate over dense KV caches)
+5. autotune -- the autotuner's measured table (kernels/autotune.py):
+               every candidate config of K1 at qwen3-8b's (K, N) of q/o,
+               k/v, gate/up and down, M = 8 and 512, int8 and f32 in,
+               equal byte for byte to the heuristic config's, then timed
+               (autotune.measure records the fastest); K2's split count
+               (measure_paged, the best split held to 1e-3 of its plain
+               version) and K3's chunk (measure_prefill) at the main
+               phase's engine key; the table dumped to the build
+               directory, cleared and loaded (every choice as measured);
+               a ContinuousEngine at qwen3-8b's widths and 4 layers
+               serving 4 of the main phase's prompts, 16 new, with no
+               table, with the K1 entries only (streams identical) and
+               with the whole table (the engine takes the loaded chunk
+               and pages per split; streams identical where both are the
+               heuristic's, else the main phase's logit gate).  The
+               tables are cleared after it.
+6. static   -- the static engine (Engine.generate over dense KV caches)
                on the same model (12 of 36 layers) and the same prompts,
                one call per prompt:
                greedy with the kernels (K1 must launch on every linear;
@@ -52,10 +68,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
                (identical streams); the
                sampler's random bits on the card equal the CPU's and its
                gumbel is within 2 ulp; decode-step and sampler times.
-6. blocking -- the serving path with blocking prefill (the engine's
+7. blocking -- the serving path with blocking prefill (the engine's
                default), paged attention, sampled at temperature 0.8:
                every request OK, K1 and K2 launched.
-7. durable  -- the prefix cache, page-out preemption and drain/restore on
+8. durable  -- the prefix cache, page-out preemption and drain/restore on
                the same model, greedy: 8 requests sharing a 256-token
                system prompt (two repeating another whole), uncached and
                cached, blocking and chunked (hits, copy-on-write copies,
@@ -70,7 +86,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
                resumed (streams equal the uninterrupted run's; snapshot
                bytes, save and restore seconds).  K3 is also held against
                its plain version at the suffix-prefill shapes in phase 3.
-8. distributed -- the mesh paths at full width on an NCCL process group
+9. distributed -- the mesh paths at full width on an NCCL process group
                of one rank in a (1, 1) ("data", "model") DeviceMesh:
                qwen3-8b at all 36 layers (w8a8_kernel) through
                launch.serve.static_generate, 8 prompts of 32 tokens from
@@ -88,7 +104,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
                the column shards of qwen3-8b's q, k/v, gate/up and head at
                a model axis of 16 (N 256, 64, 768, 9504; M 8 and 512)
                beside its plain version, bound and torch._int_mm.
-9. dryrun   -- the port's dry run (launch/dryrun.py): qwen3-8b x
+10. dryrun   -- the port's dry run (launch/dryrun.py): qwen3-8b x
                decode_32k x w8a8 (all 36 layers), granite-moe-1b-a400m
                x train_4k x none (12 of its 24 layers, to keep the phase
                in its 90 s) and qwen3-8b x train_4k x none (4 of its 36
@@ -112,7 +128,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
                within 5 % (or 64 MiB) of the real step's
                max_memory_allocated delta; step ms beside the roofline
                bound (repro_torch.roofline).
-10. families -- the rest of the decoder-only family at published widths
+11. families -- the rest of the decoder-only family at published widths
                (depth cut where noted on each run's line), random weights
                from seed 0 frozen under w8a8_kernel (routers float),
                greedy: moonshot-v1-16b-a3b (4 of 48 layers) and
@@ -151,7 +167,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
                runs' first-token logits move with whisper's frames and
                with qwen2-vl's image positions; tokens per wall second,
                decode-step ms, peak memory.
-11. train   -- in a child process with CUBLAS_WORKSPACE_CONFIG set (so
+12. train   -- in a child process with CUBLAS_WORKSPACE_CONFIG set (so
                cuBLAS is deterministic there and as before elsewhere):
                granite-moe-1b-a400m at its published size (24 layers,
                ~1.385 B parameters, bf16) trained under the qat plan with
@@ -172,14 +188,14 @@ Phases (each prints one JSON line; any failure exits non-zero):
                mesh and on a (1, 1) mesh of an NCCL group of one rank
                (params, master, m, v as DTensors): params, m, v and
                losses bit-identical.
-12. vgg8    -- the paper's VGG-8 deployment path (repro_torch.launch.fig10)
+13. vgg8    -- the paper's VGG-8 deployment path (repro_torch.launch.fig10)
                at its published widths with random weights from a seed:
                w8a8_kernel (with and without residency) and
                bitserial_kernel logits bit-identical to their plain plans,
                the cim plan with 8 sampled chips, calibrated full scales
                and per-channel fine-tunes, and the CAAT macro op on every
                cim layer's int8 inputs against the behavioural simulation.
-13. the ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
+14. the ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 ``--skip-main`` stops after the kernel phase (a quick kernel check);
@@ -1434,6 +1450,253 @@ def main_path(torch, cfg, cim_ops, paged_ops, *, device="cuda",
                               if device == "cuda" else None)}
     result["ok"] = not failures
     return result, launches, failures
+
+
+# ---------------------------------------------------------------------------
+# The autotuner's measured table
+# ---------------------------------------------------------------------------
+
+# K1's qwen3-8b shapes the phase tunes: (K, N) of q/o, k/v, gate/up and
+# down, at a decode batch and a prefill chunk, int8 and f32 inputs.
+AUTOTUNE_KN = K1_SHAPES[:4]
+AUTOTUNE_M = (8, 512)
+# The serving runs: qwen3-8b at full width and a cut depth, the first
+# AUTOTUNE_REQUESTS of the serving phases' prompts, AUTOTUNE_NEW tokens,
+# on the main phase's pool geometry (whose engine key the phase tunes).
+AUTOTUNE_LAYERS, AUTOTUNE_REQUESTS, AUTOTUNE_NEW = 4, 4, 16
+AUTOTUNE_BATCH, AUTOTUNE_BLOCKS, AUTOTUNE_BS = 8, 512, 16
+
+
+def autotune_k1(torch, autotune, cim_ops, gen, sms, device) -> list:
+    """(a): every candidate config of each K1 shape gives the heuristic
+    config's bytes (f32 out, with a bias), then ``autotune.measure``
+    times them all (host wall clock, the JAX package's method) and
+    records the fastest.  On the card the heuristic's and the chosen
+    config's device times (``Timer``: L2 flushed, the host's enqueue
+    hidden) are printed beside them."""
+    timer = Timer(torch) if device == "cuda" else None
+    # Scales already on the device: the wrapper copies nothing from the
+    # host (a copy would stall it behind the Timer's device sleep), so
+    # the device times are the kernels'.
+    a_s, one = (torch.tensor(v, device=device) for v in (0.05, 1.0))
+    rows = []
+    for k, n in AUTOTUNE_KN:
+        w = rand_i8(torch, (k, n), gen)
+        ws = torch.rand(n, generator=gen, device="cuda") * 1e-3
+        bias = torch.randn(n, generator=gen, device="cuda")
+        for m in AUTOTUNE_M:
+            for dtype in (torch.int8, torch.float32):
+                a = (rand_i8(torch, (m, k), gen) if dtype == torch.int8
+                     else torch.randn(m, k, generator=gen, device="cuda"))
+                cands = autotune.candidate_configs(m, k, n, sms)
+                outs = [cim_ops.cim_matmul(a, w, a_s, ws, bias, one,
+                                           requant=False, config=c)
+                        for c in cands]
+                differ = [tuple(c) for c, o in zip(cands, outs)
+                          if not torch.equal(o, outs[0])]
+                best, us = autotune.measure(m, k, n, dtype,
+                                            candidates=cands, device=device)
+                row = {"phase": "autotune_k1", "m": m, "k": k, "n": n,
+                       "dtype": autotune.dtype_name(dtype),
+                       "candidates": len(cands),
+                       "heuristic": tuple(cands[0]),
+                       "heuristic_us": us[cands[0]], "best": tuple(best),
+                       "best_us": us[best], "configs_differing": differ}
+                if timer is not None:
+                    for name, c in (("heuristic", cands[0]), ("best", best)):
+                        row[f"{name}_device_ms"] = timer.ms(
+                            lambda c=c: cim_ops.cim_matmul(
+                                a, w, a_s, ws, bias, one, requant=False,
+                                config=c))
+                emit(row)
+                rows.append(row)
+    return rows
+
+
+def autotune_k2(torch, autotune, paged_ops, gen, key, device) -> dict:
+    """(b): ``measure_paged`` at the engine's key, and the best split's K2
+    output held against its plain version (1e-3, as check_k2)."""
+    b, kvh, width, bs, d, g = key
+    best, us = autotune.measure_paged(b, kvh, width, bs, torch.int8,
+                                      head_dim=d, groups=g, device=device)
+    (kp, vp), (ks, vs) = _pool(torch, gen, width * b + 1, bs, kvh, d, True)
+    perm = torch.randperm(width * b, generator=gen, device="cuda") + 1
+    tables = perm.reshape(b, width).to(torch.int32).contiguous()
+    lengths = torch.randint(1, width * bs + 1, (b,), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    q = torch.randn(b, kvh, g, d, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    args = (q, kp, vp, ks, vs, tables, lengths)
+    got = paged_ops.merge_splits_kernel(*paged_ops.paged_attention_kernel(
+        *args, kv_splits=best))
+    want = paged_ops.merge_splits(*paged_ops.paged_attention_plain(
+        *args, kv_splits=best))
+    return {"best": best, "us": us, "heuristic_cuda":
+            autotune.heuristic_paged_splits_cuda(b, kvh, width,
+                                                 paged_ops.sm_count("cuda")),
+            "max_abs_err": (got - want).abs().max().item()}
+
+
+def autotune_path(torch, cfg, cim_ops, paged_ops, *, device="cuda"):
+    """The autotuner's measured table on the card: (a) K1's candidate
+    configs byte-identical and timed at qwen3-8b's shapes, (b) K2's
+    split and K3's chunk measured at the main phase's engine key, (c)
+    the table dumped, cleared and loaded back, (d) a ContinuousEngine
+    (``cfg`` cut to AUTOTUNE_LAYERS) served with no table, with the K1
+    entries only (streams identical) and with the whole table (the
+    engine takes the loaded chunk and split; streams identical where
+    both equal the heuristic's, else the main phase's logit gate).  The
+    tables are cleared at the end, so the phases after run as before."""
+    import numpy as np
+
+    from repro_torch.kernels import autotune, build
+    from repro_torch.serve import ContinuousEngine, RequestStatus
+    sms = paged_ops.sm_count(device)
+    gen = torch.Generator(device=device).manual_seed(4321)
+    kvh, d = cfg.n_kv_heads, cfg.resolved_head_dim
+    g = cfg.n_heads // kvh
+    width = AUTOTUNE_BLOCKS - 1
+    failures = []
+    try:
+        autotune.clear()
+        k1 = autotune_k1(torch, autotune, cim_ops, gen, sms, device)
+        bad = [(r["m"], r["k"], r["n"], r["dtype"]) for r in k1
+               if r["configs_differing"]]
+        if bad:
+            failures.append(f"K1 configs differ from the heuristic's bytes "
+                            f"at {bad}")
+        k2 = autotune_k2(torch, autotune, paged_ops, gen,
+                         (AUTOTUNE_BATCH, kvh, width, AUTOTUNE_BS, d, g),
+                         device)
+        if not k2["max_abs_err"] <= 1e-3:
+            failures.append(f"K2 at the measured split {k2['best']}: max "
+                            f"abs err {k2['max_abs_err']} > 1e-3")
+        chunk, chunk_us = autotune.measure_prefill(
+            AUTOTUNE_BATCH, kvh, AUTOTUNE_BS, torch.int8, head_dim=d,
+            groups=g, device=device)
+
+        # (c) dump, clear, load: every choice as measured.
+        path = build.build_dir() / "autotune_table.json"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        table = json.loads(autotune.dump(str(path)))
+        dumped = sum(len(table[f]) for f in ("gemm_entries",
+                                             "paged_entries",
+                                             "prefill_entries"))
+        autotune.clear()
+        loaded = autotune.load(str(path))
+        lost = [r for r in k1 if autotune.choose_config(
+            r["m"], r["k"], r["n"], r["dtype"], sms) != tuple(r["best"])]
+        engine_key = dict(head_dim=d, groups=g)
+        if (loaded != dumped or lost
+                or autotune.measured_paged_splits(
+                    AUTOTUNE_BATCH, kvh, width, AUTOTUNE_BS, torch.int8,
+                    **engine_key) != k2["best"]
+                or autotune.choose_prefill_chunk(
+                    AUTOTUNE_BATCH, kvh, AUTOTUNE_BS, torch.int8,
+                    **engine_key) != chunk):
+            failures.append(f"the loaded table differs from the measured "
+                            f"one (dumped {dumped}, loaded {loaded}, K1 "
+                            f"lost {len(lost)})")
+
+        # (d) three serving runs.
+        small = dataclasses.replace(cfg, n_layers=AUTOTUNE_LAYERS)
+        params, plan, _ = frozen_params(torch, small, device)
+        reqs = [dataclasses.replace(r, max_new=AUTOTUNE_NEW) for r in
+                serving_requests(torch, small)[:AUTOTUNE_REQUESTS]]
+        k1_only = json.dumps({"gemm_entries": table["gemm_entries"]})
+        runs, launches = {}, {}
+        for name, text in (("no_table", None), ("k1_table", k1_only),
+                           ("whole_table", str(path))):
+            autotune.clear()
+            if text is not None:
+                autotune.load(text)
+            ce = ContinuousEngine(
+                params, small, plan=plan, max_batch=AUTOTUNE_BATCH,
+                kv_blocks=AUTOTUNE_BLOCKS, block_size=AUTOTUNE_BS,
+                segment_len=8, paged_attn=True, chunked_prefill=True,
+                device=device)
+            reset_launches(cim_ops, paged_ops)
+            t0 = time.perf_counter()
+            res = ce.run(reqs)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches[name] = read_launches(cim_ops, paged_ops)
+            if any(r.status is not RequestStatus.OK for r in res.values()):
+                failures.append(f"{name}: a request is not OK")
+            if device == "cuda" and min(launches[name].values()) <= 0:
+                failures.append(f"{name}: a kernel never launched "
+                                f"({launches[name]})")
+            runs[name] = {"prefill_chunk": ce.prefill_chunk,
+                          "split_pages": ce.split_pages, "wall_s": wall,
+                          "streams": [res[r.rid].tokens for r in reqs]}
+
+        def same(a, b):
+            return [bool(np.array_equal(x, y)) for x, y in
+                    zip(runs[a]["streams"], runs[b]["streams"])]
+
+        k1_same = same("no_table", "k1_table")
+        if not all(k1_same):
+            failures.append(f"K1-only table: streams differ {k1_same}")
+        whole, base = runs["whole_table"], runs["no_table"]
+        want_pps = -(-width // k2["best"]) if device == "cuda" else None
+        if (whole["prefill_chunk"], whole["split_pages"]) != (chunk,
+                                                              want_pps):
+            failures.append(f"the engine took chunk {whole['prefill_chunk']}"
+                            f" and {whole['split_pages']} pages per split, "
+                            f"not the loaded {chunk} and {want_pps}")
+        whole_same = same("no_table", "whole_table")
+        gate = None
+        if (whole["prefill_chunk"], whole["split_pages"]) == (
+                base["prefill_chunk"], base["split_pages"]):
+            if not all(whole_same):
+                failures.append(f"whole table at the heuristic's choices: "
+                                f"streams differ {whole_same}")
+        else:
+            # The main phase's rule at the loaded chunk: kernel vs plain
+            # prefill logits within 1.5x the reordering floor; the plain
+            # first token is the plain prefill's argmax.
+            modes = {"kernel": (False, ce.plan), "plain": (True, ce.plan),
+                     "reorder": (True, dataclasses.replace(
+                         ce.plan, paged_attn=False))}
+            pf = {name: [] for name in modes}
+            for name, (plain, mode) in modes.items():
+                ctx = (plain_versions(cim_ops, paged_ops) if plain
+                       else contextlib.nullcontext())
+                with ctx:
+                    for r in reqs:
+                        pf[name].append(chunked_prefill_logits(
+                            torch, params, small, r.prompt, mode,
+                            chunk=whole["prefill_chunk"], device=device))
+            gate, gate_failures = logit_gate(
+                torch, pf, whole["streams"],
+                [[int(lp.argmax())] for lp in pf["plain"]], run_floor=True)
+            failures += [f"whole table: {f}" for f in gate_failures]
+    finally:
+        autotune.clear()
+    total = {k: sum(c[k] for c in launches.values())
+             for k in launches["no_table"]}
+    result = {"phase": "autotune",
+              "device": (torch.cuda.get_device_name(0) if device == "cuda"
+                         else device),
+              "layers": AUTOTUNE_LAYERS, "requests": len(reqs),
+              "k1_shapes": len(k1),
+              "k1_best_differs_from_heuristic": sum(
+                  r["best"] != r["heuristic"] for r in k1),
+              "k2": {**k2, "key": [AUTOTUNE_BATCH, kvh, width, AUTOTUNE_BS,
+                                   d, g, "int8"]},
+              "k3": {"best": chunk, "us_per_token": chunk_us,
+                     "heuristic": autotune.heuristic_prefill_chunk(
+                         AUTOTUNE_BS)},
+              "table": {"path": str(path), "dumped": dumped,
+                        "loaded": loaded},
+              "runs": {name: {k: v for k, v in r.items() if k != "streams"}
+                       for name, r in runs.items()},
+              "k1_table_streams_identical": k1_same,
+              "whole_table_streams_identical": whole_same,
+              "logit_gate": gate, "launches_by_run": launches}
+    result["ok"] = not failures
+    return result, total, failures
 
 
 # ---------------------------------------------------------------------------
@@ -4001,6 +4264,8 @@ def main() -> int:
         paths = (
             ("main", lambda: main_path(torch, serving, cim_ops, paged_ops,
                                        cache=served)),
+            ("autotune", lambda: autotune_path(torch, serving, cim_ops,
+                                               paged_ops)),
             ("static", lambda: static_path(torch, serving, cim_ops,
                                            paged_ops, cache=served)),
             ("blocking", lambda: blocking_path(torch, serving, cim_ops,

@@ -28,6 +28,35 @@ def absmax_scale(x: torch.Tensor, axis=None, qmax: int = INT8_MAX
     return amax.clamp_min(1e-8) / qmax
 
 
+def _quantile(x: torch.Tensor, q: float) -> torch.Tensor:
+    """``jnp.quantile(x.reshape(-1), q)`` (linear), step for step in f32:
+    position ``q * (n - 1)`` (n taken to f32, as JAX does), the order
+    statistics at its floor and ceiling by ``kthvalue``
+    (``torch.quantile`` refuses inputs above 2**24 elements), then
+    ``lo * (1 - w) + hi * w``.  XLA may fuse that last step, so the
+    result can differ from JAX's by 1 f32 ulp.  Returned in ``x``'s
+    float dtype (f32 for an integer ``x``), as JAX returns it."""
+    a = x.reshape(-1)
+    dtype = a.dtype if a.is_floating_point() else torch.float32
+    f32 = a.to(torch.float32)
+    if torch.isnan(f32).any():          # JAX: any NaN makes it NaN
+        return torch.full((), float("nan"), dtype=dtype, device=a.device)
+    n = torch.tensor(f32.numel(), dtype=torch.float32)
+    pos = torch.tensor(q, dtype=torch.float32) * (n - 1)
+    low, high = torch.floor(pos), torch.ceil(pos)
+    hw = pos - low
+    lo, hi = (f32.kthvalue(int(torch.clamp(i, 0, n - 1)) + 1).values.cpu()
+              for i in (low, high))
+    return (lo * (1 - hw) + hi * hw).to(device=a.device, dtype=dtype)
+
+
+def quantile_scale(x: torch.Tensor, q: float = 0.9995,
+                   qmax: int = INT8_MAX) -> torch.Tensor:
+    """Clipping scale from a high quantile of |x| (robust to outliers);
+    within 2 f32 ulp of the JAX package's (see :func:`_quantile`)."""
+    return _quantile(x.abs(), q).clamp_min(1e-8) / qmax
+
+
 def quantize(x: torch.Tensor, scale) -> torch.Tensor:
     """Symmetric int8 quantization."""
     return torch.clamp(torch.round(x / scale), INT8_MIN, INT8_MAX).to(
@@ -168,3 +197,17 @@ def bitserial_matmul(a_q, w_q, a_scale, w_scale, bias=None,
     if relu:
         y = torch.clamp_min(y, 0.0)
     return y
+
+
+@dataclasses.dataclass
+class ActObserver:
+    """Running absmax collector for static activation scales."""
+    amax: float = 0.0
+    count: int = 0
+
+    def update(self, x: torch.Tensor) -> None:
+        self.amax = max(self.amax, float(x.abs().amax()))
+        self.count += 1
+
+    def scale(self, qmax: int = INT8_MAX) -> float:
+        return max(self.amax, 1e-8) / qmax

@@ -12,10 +12,12 @@ shape and dtype (and the int8 scratch the kernel allocates), no launch;
 every call records its work into a running ``roofline.op_count`` counter,
 whichever arm runs.  Every shape is taken.  Which of
 the file's two kernels runs, with which tile and split, is
-``autotune.cim_matmul_config`` of the shape: the wgmma kernel where K and
-N are multiples of 16 (an f32 input is then quantized once per launch
-into an int8 scratch allocated here), else the byte-masked kernel (VGG-8's
-conv1 has K = 27, its head N = 10).  Nothing is padded here.
+``autotune.choose_config`` of the shape (a measured table entry, else
+``autotune.cim_matmul_config``), or the ``config=`` a caller passes: the
+wgmma kernel where K and N are multiples of 16 (an f32 input is then
+quantized once per launch into an int8 scratch allocated here), else the
+byte-masked kernel (VGG-8's conv1 has K = 27, its head N = 10).  Nothing
+is padded here.
 """
 from __future__ import annotations
 
@@ -35,10 +37,12 @@ PLAIN_BLOCK = 1 << 27
 
 
 def cim_matmul_plain(a, w_q, a_scale, w_scale, bias, out_scale, *,
-                     relu: bool = False, requant: bool = False
-                     ) -> torch.Tensor:
+                     relu: bool = False, requant: bool = False,
+                     config=None) -> torch.Tensor:
     """The kernel's function in plain PyTorch.  a [M,K] int8 or f32; w_q
     [K,N] int8; a_scale / out_scale 0-dim f32; w_scale, bias [N] f32.
+    ``config`` (the kernel's path, tile and split) changes nothing here,
+    as it changes no bit of the kernel's result.
 
     The int8 product is exact (float64 accumulation, see core/quant.py),
     then the same f32 epilogue as the kernel, so the two agree bit for
@@ -100,7 +104,8 @@ def _work(a, w_q, a_scale=None, w_scale=None, bias=None, out_scale=None,
 
 
 def _kernel_fake(a, w_q, a_scale, w_scale, bias, out_scale, *,
-                 relu: bool = False, requant: bool = False) -> torch.Tensor:
+                 relu: bool = False, requant: bool = False,
+                 config=None) -> torch.Tensor:
     """The kernel's output for a fake ``a`` [M, K], with the int8 scratch
     the wgmma path allocates for an f32 input (freed at once)."""
     k, n = w_q.shape
@@ -111,7 +116,8 @@ def _kernel_fake(a, w_q, a_scale, w_scale, bias, out_scale, *,
 
 
 def _fake(a_q, w_q, a_scale, w_scale, bias=None, out_scale=None, *,
-          relu: bool = False, requant: bool | None = None) -> torch.Tensor:
+          relu: bool = False, requant: bool | None = None,
+          config=None) -> torch.Tensor:
     """:func:`cim_matmul` on a fake ``a_q``: the wrapper's own f32 copy
     and contiguous copy of the input, then the kernel's output."""
     if requant is None:
@@ -128,11 +134,12 @@ def _fake(a_q, w_q, a_scale, w_scale, bias=None, out_scale=None, *,
 
 @op_count.shape_only("cim_matmul", _work, _kernel_fake)
 def cim_matmul_kernel(a, w_q, a_scale, w_scale, bias, out_scale, *,
-                      relu: bool = False, requant: bool = False
-                      ) -> torch.Tensor:
+                      relu: bool = False, requant: bool = False,
+                      config=None) -> torch.Tensor:
     """Launch the CUDA kernel; same arguments and result as
-    :func:`cim_matmul_plain`.  Raises on anything the kernel does not
-    take."""
+    :func:`cim_matmul_plain`.  ``config`` (an ``autotune.MatmulConfig``)
+    pins the path, tile and split, else ``autotune.choose_config``
+    picks them.  Raises on anything the kernel does not take."""
     global launches
     m, k = a.shape
     k2, n = w_q.shape
@@ -164,7 +171,8 @@ def cim_matmul_kernel(a, w_q, a_scale, w_scale, bias, out_scale, *,
         return out
     f32_in = int(a.dtype == torch.float32)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    cfg = autotune.cim_matmul_config(m, n, k, sm_count(dev))
+    cfg = (autotune.choose_config(m, k, n, a.dtype, sm_count(dev))
+           if config is None else autotune.check_config(k, n, config))
     if cfg.path == "wgmma":
         scratch = (torch.empty((m, k), dtype=torch.int8, device=dev)
                    if f32_in else a)
@@ -185,10 +193,12 @@ def cim_matmul_kernel(a, w_q, a_scale, w_scale, bias, out_scale, *,
 
 @op_count.shape_only("cim_matmul", _work, _fake)
 def cim_matmul(a_q, w_q, a_scale, w_scale, bias=None, out_scale=None, *,
-               relu: bool = False, requant: bool | None = None
-               ) -> torch.Tensor:
+               relu: bool = False, requant: bool | None = None,
+               config=None) -> torch.Tensor:
     """Fused W8A8 linear: y = epilogue(a_q @ w_q) over leading dims.
-    Returns f32, or int8 when requantizing (``out_scale`` given)."""
+    Returns f32, or int8 when requantizing (``out_scale`` given).
+    ``config`` pins the card's kernel config (what ``autotune.measure``
+    times); the plain version on the CPU has none."""
     if requant is None:
         requant = out_scale is not None
     k, n = w_q.shape
@@ -214,5 +224,5 @@ def cim_matmul(a_q, w_q, a_scale, w_scale, bias=None, out_scale=None, *,
                                requant=requant)
     else:
         out = cim_matmul_kernel(a2, w_q, a_s, ws, b, os_, relu=relu,
-                                requant=requant)
+                                requant=requant, config=config)
     return out.reshape(*lead, n)

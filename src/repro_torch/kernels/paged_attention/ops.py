@@ -305,10 +305,11 @@ def paged_attention(q, k_pages, v_pages, block_tables, n_valid, *,
 
     ``split_pages`` (pages per split, fixed by a serving engine: see
     ``autotune.paged_split_pages``) sets the splits when given; else
-    ``kv_splits`` defaults to the heuristic for this shape: on CUDA the
-    card's (enough splits to give every SM two blocks), on the CPU the
-    JAX package's.  ``n_valid`` is effectively clamped to the table
-    capacity ``W * BS``."""
+    ``kv_splits`` defaults to the autotuner's choice for this shape: on
+    CUDA a measured entry at its key, else the card's heuristic (enough
+    splits to give every SM two blocks); elsewhere
+    ``autotune.choose_paged_splits``, as in the JAX package.  ``n_valid``
+    is effectively clamped to the table capacity ``W * BS``."""
     b, sq, h, d = q.shape
     if sq != 1:
         raise ValueError("paged flash decoding serves single-token queries")
@@ -318,10 +319,15 @@ def paged_attention(q, k_pages, v_pages, block_tables, n_valid, *,
     g = h // kvh
     width = block_tables.shape[1]
     if kv_splits is None and not split_pages:
-        kv_splits = (autotune.heuristic_paged_splits_cuda(
-            b, kvh, width, sm_count(q.device)) if q.device.type == "cuda"
-            else autotune.choose_paged_splits(
-                b, kvh, width, bs, k_q.dtype, head_dim=d, groups=g))
+        if q.device.type == "cuda":
+            kv_splits = autotune.measured_paged_splits(
+                b, kvh, width, bs, k_q.dtype, head_dim=d, groups=g)
+            if kv_splits is None:
+                kv_splits = autotune.heuristic_paged_splits_cuda(
+                    b, kvh, width, sm_count(q.device))
+        else:
+            kv_splits = autotune.choose_paged_splits(
+                b, kvh, width, bs, k_q.dtype, head_dim=d, groups=g)
     qr = q.reshape(b, kvh, g, d)
     args = (k_q, v_q, k_s, v_s, block_tables.to(torch.int32),
             n_valid.to(torch.int32))

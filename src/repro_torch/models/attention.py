@@ -34,6 +34,7 @@ import math
 
 import torch
 
+from repro_torch import device as device_lib
 from repro_torch.core import backend as backend_lib
 from repro_torch.core import quant
 from repro_torch.distributed import collectives, spmd
@@ -499,6 +500,23 @@ def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def dequantize_kv(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(torch.float32) * scale.to(torch.float32)[..., None]
+
+
+def init_kv_cache(batch: int, max_len: int, n_kv_heads: int, head_dim: int,
+                  dtype=torch.bfloat16, *, device="cuda") -> dict:
+    """A zero dense KV cache in the JAX package's layout: ``k``/``v``
+    [B, max_len, KVH, D], a 0-d int32 ``len``, and bf16 ``k_scale`` /
+    ``v_scale`` [B, max_len, KVH] when ``dtype`` is int8."""
+    dev = device_lib.resolve(device)
+    shape = (batch, max_len, n_kv_heads, head_dim)
+    c = {"k": torch.zeros(shape, dtype=dtype, device=dev),
+         "v": torch.zeros(shape, dtype=dtype, device=dev),
+         "len": torch.zeros((), dtype=torch.int32, device=dev)}
+    if dtype == torch.int8:
+        for name in ("k_scale", "v_scale"):
+            c[name] = torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                  device=dev)
+    return c
 
 
 def attention(p: dict, x: torch.Tensor, cfg, *, positions=None,

@@ -240,12 +240,13 @@ class ContinuousEngine:
             {} if keep_first_logits else None)
         self._chunk_logits = None   # the last prefill chunk's, if kept
         self._int8_pool = getattr(cfg, "kv_cache_dtype", "bf16") == "int8"
+        heads = dict(head_dim=cfg.resolved_head_dim,
+                     groups=cfg.n_heads // cfg.n_kv_heads)
         if prefill_chunk is None:
-            kvh = cfg.n_kv_heads
+            # The JAX package's key: an fp pool counts as float32.
             prefill_chunk = autotune.choose_prefill_chunk(
-                max_batch, kvh, block_size,
-                torch.int8 if self._int8_pool else torch.float32,
-                head_dim=cfg.resolved_head_dim, groups=cfg.n_heads // kvh)
+                max_batch, cfg.n_kv_heads, block_size,
+                torch.int8 if self._int8_pool else torch.float32, **heads)
         if prefill_chunk % block_size != 0 or prefill_chunk < block_size:
             raise ValueError(
                 f"prefill_chunk ({prefill_chunk}) must be a positive "
@@ -259,12 +260,15 @@ class ContinuousEngine:
                                    else max_blocks_per_req)
         self.max_seq_len = self.max_blocks_per_req * block_size
         # On the card the decode kernel's pages per split are fixed for
-        # the widest table, so a request decodes to the same bits at every
-        # live table width (page-out and restore stay exact); the CPU
-        # keeps the JAX package's split heuristic.
+        # the widest table (a measured split at this engine's key, else
+        # the card's heuristic), so a request decodes to the same bits at
+        # every live table width (page-out and restore stay exact); the
+        # CPU keeps the JAX package's split choice.
         self.split_pages = (autotune.paged_split_pages(
             max_batch, cfg.n_kv_heads, self.max_blocks_per_req,
-            device_lib.sm_count(self.device))
+            device_lib.sm_count(self.device), block_size=block_size,
+            dtype=(torch.int8 if self._int8_pool else torch.bfloat16
+                   if cfg.dtype == "bfloat16" else torch.float32), **heads)
             if self.device.type == "cuda" else None)
         # The inner engine's max_len bounds blocking prefill's prompt
         # buckets, as in the JAX package.

@@ -55,7 +55,8 @@ def test_no_source_names_the_jax_package():
 
 
 @pytest.mark.parametrize("entry", ["init", "pages", "engine", "launch",
-                                   "fig10", "static_engine"])
+                                   "fig10", "static_engine", "kv_cache",
+                                   "measure"])
 def test_entry_points_default_to_cuda(entry):
     """Without device='cpu' an entry point raises on a machine without
     CUDA (on a machine with a card there is nothing to check here)."""
@@ -83,6 +84,12 @@ def test_entry_points_default_to_cuda(entry):
             params = M.init(cfg, torch.Generator().manual_seed(0),
                             device="cpu")
             Engine(params, cfg)
+        elif entry == "kv_cache":
+            from repro_torch.models import attention
+            attention.init_kv_cache(2, 8, 2, 16)
+        elif entry == "measure":
+            from repro_torch.kernels import autotune
+            autotune.measure(8, 64, 32)
         else:
             launch.main(["--arch", "qwen3-8b", "--continuous",
                          "--chunked-prefill"])

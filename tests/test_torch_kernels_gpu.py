@@ -619,6 +619,33 @@ def test_cim_matmul_ssm_shapes_bit_exact(hopper, k, n, m):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(8, 4096, 1024), (3, 12288, 4096),
+                                   (512, 4096, 4096)])
+def test_cim_matmul_every_candidate_config_same_bytes(hopper, m, k, n):
+    """Every config the autotuner may record for a shape (two decode
+    shapes, one prefill chunk) gives the heuristic config's bytes, f32
+    and int8 in, with and without requant: a measured K1 table never
+    changes a result."""
+    from repro_torch.kernels import autotune
+    gen = torch.Generator(device="cuda").manual_seed(m + k + n)
+    w = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                      dtype=torch.int32).to(torch.int8)
+    ws = torch.rand(n, generator=gen, device="cuda") * 1e-3 + 1e-4
+    bias = torch.randn(n, generator=gen, device="cuda")
+    a32 = torch.randn(m, k, generator=gen, device="cuda") * 2.0
+    a8 = torch.randint(-128, 128, (m, k), generator=gen, device="cuda",
+                       dtype=torch.int32).to(torch.int8)
+    cands = autotune.candidate_configs(m, k, n, tops.sm_count("cuda"))
+    assert len(cands) > 20
+    for a in (a32, a8):
+        for out_scale in (None, 0.3):
+            outs = [cim_ops.cim_matmul(a, w, 0.05, ws, bias, out_scale,
+                                       config=c) for c in cands]
+            for c, o in zip(cands, outs):
+                assert torch.equal(o, outs[0]), c
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("arch,layers", [("mamba2-1.3b", 2),
                                          ("zamba2-2.7b", 4)])
 def test_ssm_generate_matches_plain(hopper, arch, layers, monkeypatch):
