@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.core import calibration, quant
 
 
@@ -102,19 +103,17 @@ def pages_from_jax(pages, *, device="cpu") -> dict:
 
 def key_from_jax(key_data, *, device="cpu") -> torch.Tensor:
     """A JAX PRNG key's data (``np.asarray(jax.random.key_data(k))``,
-    ``uint32[..., 2]``) -> the port's sampler key (``serve/prng.py``):
+    ``uint32[..., 2]``) -> the port's sampler key (``prng.py``):
     the same two words as an int64 tensor, so draws from it equal JAX's
     bit for bit."""
-    from repro_torch.serve import prng
     return prng.as_key(np.asarray(key_data, dtype=np.uint32), device)
 
 
 def chip_from_jax(sample, *, device="cpu") -> dict:
     """The JAX package's ``MacroSample`` (``{"caat": {...}, "adc":
-    {"inl_lut": ...}}``, numpy leaves) -> the port's chip.  Sampled arrays
-    cross as they are: ``jax.random`` and ``torch.Generator`` draw
-    different numbers, so a comparison carries the chip across instead of
-    re-sampling it."""
+    {"inl_lut": ...}}``, numpy leaves) -> the port's chip, its arrays as
+    they are (the port's ``sample_chip`` at the same key is within 2 f32
+    ulp of 1.0 of it: the ADC bow goes through ``sin``)."""
     return {"caat": _convert(dict(sample["caat"]), device),
             "adc": _convert(dict(sample["adc"]), device)}
 

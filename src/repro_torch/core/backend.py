@@ -34,6 +34,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch import prng
 from repro_torch.core import calibration as cal_lib
 from repro_torch.core import macro as macro_lib
 from repro_torch.core import quant
@@ -102,18 +103,22 @@ class ExecutionBackend:
     needs_chip: bool = False      # does apply() need a sampled chip?
     supports_out_requant: bool = False
 
-    def init(self, gen: torch.Generator, spec: LinearSpec,
+    def init(self, key, spec: LinearSpec,
              scale: float | None = None) -> Params:
-        """Master (float) parameters with fan-in scaled init, on
-        ``gen``'s device."""
+        """Master (float) parameters with fan-in scaled init: at a
+        ``prng`` key the JAX package's draw, on the key's device,
+        or from a ``torch.Generator`` on its device."""
         if scale is None:
             scale = spec.in_dim ** -0.5
-        w = torch.randn((spec.in_dim, spec.out_dim), generator=gen,
-                        device=gen.device) * scale
-        p: Params = {"w": w.to(spec.dtype)}
+        shape = (spec.in_dim, spec.out_dim)
+        if isinstance(key, torch.Generator):
+            w = torch.randn(shape, generator=key, device=key.device)
+        else:
+            w = prng.normal(prng.as_key(key), shape)
+        p: Params = {"w": (w * scale).to(spec.dtype)}
         if spec.use_bias:
             p["b"] = torch.zeros(spec.out_dim, dtype=torch.float32,
-                                 device=gen.device)
+                                 device=w.device)
         return p
 
     def freeze(self, params: Params, spec: LinearSpec | None = None,

@@ -10,10 +10,10 @@ voltage is A.W / (M * W_SUM * A_SUM).  A chip sample carries capacitor
 mismatch (Pelgrom), C-2C stage attenuation, and per-bank / root gain and
 offset errors.
 
-``sample_caat`` draws from an explicit ``torch.Generator``: the same
-distribution as the JAX package, not the same numbers.  To compare the two
-packages on one chip, carry the JAX package's sampled arrays across
-(``repro_torch.convert.chip_from_jax``).
+``sample_caat`` draws at a ``prng`` key the chip that the JAX
+package draws at that key (its normals bit for bit; a ``[..., 2]`` batch
+of keys draws a batch of chips); ``convert.chip_from_jax`` carries a JAX
+chip's arrays across.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.core import numerics
 
 
@@ -51,38 +52,43 @@ class CaatConfig:
 CaatSample = dict[str, Any]
 
 
-def _mismatched_weights(gen: torch.Generator, nominal: np.ndarray,
-                        cfg: CaatConfig, device) -> torch.Tensor:
-    """Pelgrom mismatch + C-2C stage attenuation on one ladder."""
-    nominal = torch.as_tensor(nominal, dtype=torch.float32, device=device)
+def _mismatched_weights(eps: torch.Tensor, nominal: np.ndarray,
+                        cfg: CaatConfig) -> torch.Tensor:
+    """Pelgrom mismatch (``eps`` standard normal, one per capacitor of
+    the ladder's last axis) + C-2C stage attenuation on one ladder, in
+    JAX's f32 steps (its ``sqrt`` correctly rounded, through float64)."""
+    nominal = torch.as_tensor(nominal, dtype=torch.float32,
+                              device=eps.device)
     w_min = float(nominal.min())
-    sigma = cfg.sigma_unit / torch.sqrt(nominal / w_min)
-    eps = torch.randn(nominal.shape, generator=gen, device=device) * sigma
+    sigma = cfg.sigma_unit / torch.sqrt(
+        (nominal / w_min).to(torch.float64)).to(torch.float32)
     n = nominal.shape[-1]
     depth = torch.clamp_min(
-        torch.arange(n, device=device) - (cfg.n_binary_msbs - 1), 0).to(
-            torch.float32)
-    atten = (1.0 - cfg.c2c_stage_gamma) ** depth
-    return nominal * (1.0 + eps) * atten
+        torch.arange(n, device=eps.device) - (cfg.n_binary_msbs - 1), 0)
+    atten = torch.as_tensor(np.float32(1.0 - cfg.c2c_stage_gamma)
+                            ** depth.cpu().numpy().astype(np.float32),
+                            device=eps.device)
+    return nominal * (1.0 + eps * sigma) * atten
 
 
-def sample_caat(gen: torch.Generator, cfg: CaatConfig) -> CaatSample:
-    """Draw one fabricated chip's CAAT on ``gen``'s device."""
-    dev = gen.device
-    bank_w = torch.stack([_mismatched_weights(gen, cfg.w_weights, cfg, dev)
-                          for _ in range(cfg.n_act_bits)])
-    root_w = _mismatched_weights(gen, cfg.act_weights, cfg, dev)
-
-    def normal(shape):
-        return torch.randn(shape, generator=gen, device=dev)
-
+def sample_caat(key, cfg: CaatConfig) -> CaatSample:
+    """Draw one fabricated chip's CAAT: at a ``prng`` key (JAX's
+    split order: bank, root, bank gain, root gain, bank offset, root
+    offset; one key per bank ladder) on the key's device."""
+    keys = prng.split(prng.as_key(key), 6).unbind(-2)
+    bank_eps = prng.normal(prng.split(keys[0], cfg.n_act_bits),
+                           (cfg.n_w_bits,))
+    root_eps = prng.normal(keys[1], (cfg.n_act_bits,))
+    gain_b, gain_r, off_b, off_r = (
+        prng.normal(k, s) for k, s in zip(
+            keys[2:], ((cfg.n_act_bits,), (), (cfg.n_act_bits,), ())))
     return {
-        "bank_w": bank_w,
-        "root_w": root_w,
-        "bank_gain": 1.0 + cfg.gain_sigma * normal((cfg.n_act_bits,)),
-        "root_gain": 1.0 + cfg.gain_sigma * normal(()),
-        "bank_off": cfg.offset_sigma * normal((cfg.n_act_bits,)),
-        "root_off": cfg.offset_sigma * normal(()),
+        "bank_w": _mismatched_weights(bank_eps, cfg.w_weights, cfg),
+        "root_w": _mismatched_weights(root_eps, cfg.act_weights, cfg),
+        "bank_gain": 1.0 + cfg.gain_sigma * gain_b,
+        "root_gain": 1.0 + cfg.gain_sigma * gain_r,
+        "bank_off": cfg.offset_sigma * off_b,
+        "root_off": cfg.offset_sigma * off_r,
     }
 
 

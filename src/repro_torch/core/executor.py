@@ -9,8 +9,6 @@ deployed int8 form with static scales.
 """
 from __future__ import annotations
 
-import torch
-
 from repro_torch.core.backend import (  # noqa: F401  (public API)
     DeploymentPlan, LayerRule, LinearSpec, Params, available_backends,
     get_backend, register_backend)
@@ -18,10 +16,10 @@ from repro_torch.core.backend import (  # noqa: F401  (public API)
 MODES = available_backends()
 
 
-def init(gen: torch.Generator, spec: LinearSpec,
-         scale: float | None = None) -> Params:
-    """Master (float) parameters with fan-in scaled init."""
-    return get_backend(spec.mode).init(gen, spec, scale)
+def init(key, spec: LinearSpec, scale: float | None = None) -> Params:
+    """Master (float) parameters with fan-in scaled init (a ``prng``
+    key or a ``torch.Generator``)."""
+    return get_backend(spec.mode).init(key, spec, scale)
 
 
 def freeze(params: Params, spec: LinearSpec, a_scale, chip=None,

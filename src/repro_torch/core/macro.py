@@ -24,6 +24,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.core import adc as adc_lib
 from repro_torch.core import caat as caat_lib
 from repro_torch.core import numerics
@@ -47,10 +48,12 @@ class MacroConfig:
 MacroSample = dict[str, Any]
 
 
-def sample_chip(gen: torch.Generator, cfg: MacroConfig) -> MacroSample:
-    """Draw one chip: CAAT mismatch + ADC INL."""
-    return {"caat": caat_lib.sample_caat(gen, cfg.caat),
-            "adc": adc_lib.sample_adc(gen, cfg.adc)}
+def sample_chip(key, cfg: MacroConfig) -> MacroSample:
+    """Draw one chip: CAAT mismatch + ADC INL, at a ``prng`` key
+    (split in two, as the JAX package splits it)."""
+    k_caat, k_adc = prng.split(prng.as_key(key), 2).unbind(-2)
+    return {"caat": caat_lib.sample_caat(k_caat, cfg.caat),
+            "adc": adc_lib.sample_adc(k_adc, cfg.adc)}
 
 
 def ideal_chip(cfg: MacroConfig, device="cpu") -> MacroSample:

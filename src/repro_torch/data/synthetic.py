@@ -4,13 +4,14 @@
   regenerates exactly the batches N, N+1, ... that a run never stopped
   would have seen (the data half of resume).  A Markov-ish stream of
   state-conditioned token ranges plus geometric noise, drawn through
-  ``serve/prng.py``, so a batch equals the JAX package's at the same seed
+  ``prng.py``, so a batch equals the JAX package's at the same seed
   and step (up to ``prng.geometric``'s ``log`` rounding).
 * Synthetic CIFAR-like images for the VGG-8 experiments: per-class
   frequency/orientation patterns plus noise; CIFAR itself is not
   available offline, so Fig. 10 is reproduced mechanistically on this
-  set.  The noise is drawn from an explicit ``torch.Generator``: the
-  same distribution as the JAX package, not the same images.
+  set.  They are drawn at a ``prng`` key, as the JAX package draws them
+  at that key: the labels exactly, the images within 2 f32 ulp of 1.0
+  (their patterns go through ``sin``/``cos``).
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ import math
 
 import torch
 
-from repro_torch.serve import prng
+from repro_torch import prng
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,22 +58,30 @@ def host_shard(batch: dict, n_shards: int, shard_idx: int) -> dict:
     return {k: slc(v) for k, v in batch.items()}
 
 
-def synthetic_cifar(gen: torch.Generator, n: int, n_classes: int = 10,
+def _f32(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn`` of an f32 tensor rounded once from float64: torch's f32
+    ``sin``/``cos`` round further from XLA's than this does."""
+    return fn(x.to(torch.float64)).to(torch.float32)
+
+
+def synthetic_cifar(key, n: int, n_classes: int = 10,
                     size: int = 32) -> tuple[torch.Tensor, torch.Tensor]:
-    """Images [n, size, size, 3] in [0, 1] (NHWC) and labels [n], on
-    ``gen``'s device."""
-    dev = gen.device
-    labels = torch.randint(0, n_classes, (n,), generator=gen, device=dev)
+    """Images [n, size, size, 3] in [0, 1] (NHWC) and int64 labels [n]:
+    at a ``prng`` key (split in three: labels, noise, jitter) on the
+    key's device."""
+    k1, k2, k3 = prng.split(prng.as_key(key), 3).unbind(-2)
+    dev = k1.device
+    labels = prng.randint(k1, (n,), 0, n_classes).to(torch.int64)
     ar = torch.arange(size, device=dev, dtype=torch.float32)
     yy, xx = torch.meshgrid(ar, ar, indexing="ij")
     cls = torch.arange(n_classes, device=dev)
     thetas = math.pi * cls.to(torch.float32) / n_classes
     freqs = 2 * math.pi * (2 + cls % 5).to(torch.float32) / size
     f = freqs[labels][:, None, None]
-    proj = (xx[None] * torch.cos(thetas[labels])[:, None, None]
-            + yy[None] * torch.sin(thetas[labels])[:, None, None])
-    img = torch.stack([torch.sin(f * proj + c * 0.7) for c in range(3)],
-                      dim=-1) * 0.35 + 0.5
-    noise = 0.15 * torch.randn(img.shape, generator=gen, device=dev)
-    jitter = 0.1 * torch.randn((n, 1, 1, 3), generator=gen, device=dev)
-    return torch.clamp(img + noise + jitter, 0, 1), labels
+    proj = (xx[None] * _f32(torch.cos, thetas[labels])[:, None, None]
+            + yy[None] * _f32(torch.sin, thetas[labels])[:, None, None])
+    img = torch.stack([_f32(torch.sin, f * proj + c * 0.7)
+                       for c in range(3)], dim=-1) * 0.35 + 0.5
+    noise = prng.normal(k2, img.shape)
+    jitter = prng.normal(k3, (n, 1, 1, 3))
+    return torch.clamp(img + 0.15 * noise + 0.1 * jitter, 0, 1), labels

@@ -25,7 +25,7 @@ text-only, and whisper-large-v3, whose encoder needs frame embeddings,
 raises a ``ValueError`` naming ``frames``.  Like the JAX launcher it
 serves the arch's reduced config with random weights (seeded).  Without
 ``--continuous`` it is the static engine: ``--batch`` prompts of
-``--prompt-len`` tokens drawn from ``PRNGKey(1)`` (``serve/prng.py``, the
+``--prompt-len`` tokens drawn from ``PRNGKey(1)`` (``prng.py``, the
 JAX launcher's prompts), one prefill and greedy decode on one device
 (or a mesh, below).  ``--continuous`` serves a
 synthetic Poisson request stream with blocking prefill, or chunked
@@ -293,7 +293,7 @@ def _static(args, cfg, params, plan, dev, tag, mesh=None):
     """The static engine: prefill the prompt batch, then greedy decode, as
     the JAX launcher's mesh path does (on one device without ``mesh``).
     Returns the generated tokens ``[batch, tokens]``."""
-    from repro_torch.serve import prng
+    from repro_torch import prng
 
     max_len = args.prompt_len + args.tokens + 8
     prompts = prng.randint(prng.PRNGKey(1, device=dev),

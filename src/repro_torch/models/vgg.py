@@ -14,6 +14,7 @@ import dataclasses
 
 import torch
 
+from repro_torch import prng
 from repro_torch.core import backend as backend_lib
 from repro_torch.core import executor, macro, quant
 
@@ -67,9 +68,12 @@ class Vgg8Config:
         return specs
 
 
-def init_vgg8(gen: torch.Generator, cfg: Vgg8Config) -> list[dict]:
-    """Master parameters of the 8 layers, drawn on ``gen``'s device."""
-    return [executor.init(gen, s) for s in cfg.layer_specs()]
+def init_vgg8(key, cfg: Vgg8Config) -> list[dict]:
+    """Master parameters of the 8 layers at a ``prng`` key: JAX's draw
+    (one split key per layer) on the key's device."""
+    specs = cfg.layer_specs()
+    keys = prng.split(prng.as_key(key), len(specs))
+    return [executor.init(k, s) for k, s in zip(keys, specs)]
 
 
 def _im2col(x):

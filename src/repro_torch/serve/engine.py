@@ -19,7 +19,7 @@ the cross K/V beside them), then decode with greedy or seeded sampling
   finished rows emit ``pad_token`` with logprob 0, and the loop stops when
   every row is done.
 * **Batch-composition-independent sampling** -- each row's key is
-  ``fold_in(fold_in(key, request_id), step)`` (``serve/prng.py``, bit for
+  ``fold_in(fold_in(key, request_id), step)`` (``prng.py``, bit for
   bit ``jax.random``'s), never a positional split of a batch key, so a
   request draws the same tokens whatever batch it shares, and the same
   tokens as the JAX engine at the same key.
@@ -40,9 +40,9 @@ from typing import Any, Sequence
 import torch
 
 from repro_torch import device as device_lib
+from repro_torch import prng
 from repro_torch.core import backend as backend_lib
 from repro_torch.models import model as model_lib
-from repro_torch.serve import prng
 
 
 @dataclasses.dataclass

@@ -65,7 +65,7 @@ Execution shape:
   lets running requests finish until a deadline, spills the stragglers
   (page_out) and writes a final snapshot.
 * **Seeded sampling** -- ``run(key=..., temperature=...)`` samples each
-  row with ``fold_in(fold_in(key, rid), step)`` (``serve/prng.py``), so a
+  row with ``fold_in(fold_in(key, rid), step)`` (``prng.py``), so a
   request's stream is independent of its batch neighbours and equal to
   the JAX engine's at the same key.
 
@@ -86,11 +86,12 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_lib
+from repro_torch import prng
 from repro_torch.core import backend as backend_lib
 from repro_torch.kernels import autotune
 from repro_torch.models import model as model_lib
 from repro_torch.serve import faults as faults_lib
-from repro_torch.serve import kv_pool, prng
+from repro_torch.serve import kv_pool
 from repro_torch.serve import snapshot as snapshot_lib
 from repro_torch.serve import telemetry as telemetry_lib
 from repro_torch.serve.engine import Engine
@@ -130,7 +131,7 @@ class _RunState:
     the same loop."""
     sched: Scheduler
     requests: dict[int, Request]
-    rng: torch.Tensor             # the run's sampler key (serve/prng.py)
+    rng: torch.Tensor             # the run's sampler key (prng.py)
     temperature: float
     greedy: bool
     stop_w: int

@@ -74,7 +74,7 @@ def _serve(arch, flag, mesh=None):
     from repro_torch.distributed import sharding
     from repro_torch.launch import serve
     from repro_torch.models import model as M
-    from repro_torch.serve import prng
+    from repro_torch import prng
 
     cfg = _act(configs.reduced_config(arch), flag)
     params = M.freeze_params(

@@ -31,11 +31,11 @@ from repro.data import synthetic as js
 from repro.train import train_loop as jtl
 from repro_torch import configs as tcfg
 from repro_torch import convert
+from repro_torch import prng
 from repro_torch.checkpoint.manager import (CheckpointManager,
                                             _flatten_with_paths)
 from repro_torch.configs.base import TrainConfig
 from repro_torch.data import synthetic as ts
-from repro_torch.serve import prng
 from repro_torch.train import optimizer as to
 from repro_torch.train import train_loop as ttl
 

@@ -1,8 +1,8 @@
 """Port parity: the paper-side datapath (numerics, CAAT, ADC, macro
 simulation, output fine-tune, energy model) against the JAX package on
 identical inputs.  Sampled chips are drawn once by JAX and carried across
-(``convert.chip_from_jax``), since jax.random and torch.Generator draw
-different numbers."""
+(``convert.chip_from_jax``); ``tests/test_torch_paper_figs.py`` holds the
+port's own draws at a key against JAX's."""
 import dataclasses
 
 import jax
@@ -17,7 +17,7 @@ from repro.core import calibration as jcal
 from repro.core import energy as jenergy
 from repro.core import macro as jmacro
 from repro.core import numerics as jnum
-from repro_torch import convert
+from repro_torch import convert, prng
 from repro_torch.core import adc as tadc
 from repro_torch.core import caat as tcaat
 from repro_torch.core import calibration as tcal
@@ -147,11 +147,10 @@ def test_adc_convert_bit_exact(relu):
 
 
 def test_port_samplers_draw_the_nominal_distribution():
-    """The port's own chips come from a torch.Generator: other numbers
-    than JAX's, the same structure (shapes, the binary section
-    unattenuated, the INL peak)."""
+    """A chip the port draws at a key has the nominal structure (shapes,
+    the binary section unattenuated, the INL peak)."""
     tcfg = tmacro.nominal_config(rows=64)
-    chip = tmacro.sample_chip(torch.Generator().manual_seed(0), tcfg)
+    chip = tmacro.sample_chip(prng.PRNGKey(0), tcfg)
     ideal = tmacro.ideal_chip(tcfg)
     for part in ("caat", "adc"):
         for k, v in ideal[part].items():

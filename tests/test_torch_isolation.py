@@ -43,6 +43,46 @@ def test_imports_without_jax():
     assert out.stdout.strip() == "ok"
 
 
+def test_paper_entry_points_run_without_jax():
+    """The five figure entry points run from their command lines (Fig. 9
+    at JAX's 200 chips and 50 ADCs: at 8 chips its >= 7b claim does not
+    hold), and Fig. 10's accuracy run (what ``--train-steps`` runs, here
+    at image size 8 with 1 step), where ``jax``, the JAX package and its
+    benchmarks are unimportable."""
+    figs = ("fig7_capacitor_area", "fig7_energy", "fig8_breakdown",
+            "table1_metrics", "fig9_nonlinearity")
+    code = (
+        "import runpy, sys\n"
+        "for m in ('jax', 'repro', 'benchmarks'):\n"
+        "    sys.modules[m] = None\n"
+        f"for name in {figs!r}:\n"
+        "    mod = 'repro_torch.launch.' + name\n"
+        "    sys.argv = [mod, '--device', 'cpu']\n"
+        "    runpy.run_module(mod, run_name='__main__', alter_sys=True)\n"
+        "from repro_torch.launch import fig10\n"
+        "from repro_torch.models import vgg\n"
+        "fig10.accuracy_run(device='cpu', steps=1, n_eval=4, batch=2,\n"
+        "                   n_calib=4, cfg=vgg.Vgg8Config(image_size=8),\n"
+        "                   check_claims=False)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'repro', 'benchmarks') and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    # One intra-op thread: the suite runs several files at once.
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env={"PYTHONPATH": str(SRC),
+                                         "PATH": "/usr/bin:/bin",
+                                         "OMP_NUM_THREADS": "1"},
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert lines[-1] == "ok"
+    for row in ("fig7a_8b_claim", "fig7b_measured_neg_fraction",
+                "fig8_adc_energy_share", "table1_", "fig9b_adc_max_inl",
+                "fig10_acc_cim_finetuned"):
+        assert any(line.startswith(row) for line in lines), row
+
+
 def test_no_source_names_the_jax_package():
     for path in list(PKG.rglob("*.py")) + list(PKG.rglob("*.cu*")):
         text = path.read_text()

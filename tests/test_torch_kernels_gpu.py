@@ -11,6 +11,7 @@ imports JAX, is skipped):
 import pytest
 import torch
 
+from repro_torch import prng
 from repro_torch.core import adc, macro
 from repro_torch.kernels.bitserial_matmul import ops as bs_ops
 from repro_torch.kernels.caat_mac import ops as caat_ops
@@ -312,7 +313,7 @@ def test_caat_mac_kernel_matches_plain_and_sim(hopper, relu, monkeypatch):
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(3)
     cfg = macro.nominal_config(rows=128)
-    chip = macro.sample_chip(gen, cfg)
+    chip = macro.sample_chip(prng.PRNGKey(3, device="cuda"), cfg)
     for b, k, n in ((40, 27, 128), (65, 300, 70), (3, 128, 10)):
         a, w = _i8(gen, (b, k)), _i8(gen, (k, n), -127)
         v_fs = torch.tensor(0.05 * 128 * 127 * 127, device="cuda")
@@ -339,7 +340,7 @@ def test_caat_mac_kernel_equals_plain(hopper, rows, relu):
     B in (1, 3, 65, 32768) and N in (10, 70, 128, 1024)."""
     gen = torch.Generator(device="cuda").manual_seed(rows)
     cfg = macro.nominal_config(rows=rows)
-    chip = macro.sample_chip(gen, cfg)
+    chip = macro.sample_chip(prng.PRNGKey(rows, device="cuda"), cfg)
     v_fs = torch.tensor(0.02 * rows * 127 * 127, device="cuda")
     for b in (1, 3, 65, 32768):
         for n in (10, 70, 128, 1024):

@@ -70,7 +70,7 @@ def _cases():
 def _decode_rank(rank):
     from repro_torch.distributed import sharding, spmd
     from repro_torch.models import model as M
-    from repro_torch.serve import prng
+    from repro_torch import prng
     from repro_torch.train import optimizer as opt_lib
 
     mesh = mesh_lib.make_debug_mesh(2, 2, device="cpu")

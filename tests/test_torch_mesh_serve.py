@@ -46,7 +46,7 @@ def _plan(name):
 def _serve(arch, plan_name, mesh=None):
     from repro_torch.distributed import sharding
     from repro_torch.models import model as M
-    from repro_torch.serve import prng
+    from repro_torch import prng
 
     cfg = configs.reduced_config(arch)
     plan = _plan(plan_name)

@@ -1,4 +1,4 @@
-"""The port's counter-based sampler (``repro_torch.serve.prng``) against
+"""The port's counter-based sampler (``repro_torch.prng``) against
 ``jax.random`` under this installation's defaults (threefry2x32,
 partitionable counters, 32-bit seeds, gumbel mode "low").
 
@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from repro_torch import convert
-from repro_torch.serve import prng
+from repro_torch import prng
 
 EPS = float(np.finfo(np.float32).eps)
 

@@ -18,7 +18,7 @@ from repro.core import macro as jm
 from repro.kernels.cim_matmul import cim_matmul as j_cim_matmul
 from repro.kernels.cim_matmul import cim_matmul_ref as j_cim_matmul_ref
 from repro.models import vgg as jv
-from repro_torch import convert
+from repro_torch import convert, prng
 from repro_torch.configs import vgg8_cifar10 as tcfg_mod
 from repro_torch.core import backend as tb
 from repro_torch.data import synthetic
@@ -182,8 +182,7 @@ def test_k1_ragged_vgg_shapes_through_wrapper(relu):
 
 
 def test_synthetic_cifar():
-    imgs, labels = synthetic.synthetic_cifar(
-        torch.Generator().manual_seed(0), 16)
+    imgs, labels = synthetic.synthetic_cifar(prng.PRNGKey(0), 16)
     assert imgs.shape == (16, 32, 32, 3) and labels.shape == (16,)
     assert float(imgs.min()) >= 0.0 and float(imgs.max()) <= 1.0
     assert 0.35 < float(imgs.mean()) < 0.65
